@@ -1,0 +1,177 @@
+// Hierarchical culling prep for the chunk sweep (kernels K3 and K2).
+//
+// Replaces radarays_ros_tpu/trace/pallas_trace.py:_coarse_kernel (K3,
+// launched at :615 in _coarse_bitmap) and :_prep_kernel_hier (K2, launched
+// at :673-709 in _run_prep_kernel). Both slab-test rays against boxes with
+// the reference's _slab_keep (:466-485): per axis t0/t1 = (lo/hi - o) /
+// dir, t_near = max_k min(t0, t1), t_far = min_k max(t0, t1),
+// tn0 = max(t_near, 0), keep = t_far >= tn0 and t_near <= cap and cap > 0
+// with cap = min(t_max, budget).
+//
+//  * K3 rr_coarse_words: one flag per (ray tile, supergroup of 32 chunks) —
+//    does any lane of the tile keep the supergroup's AABB? — packed into
+//    int32 words, bit s of word w for supergroup 32w + s (bit 31 is the
+//    sign bit). Grid (tiles, words); each thread holds a 32-bit mask of its
+//    lane's keeps, ORed across the block with warp reductions and a shared
+//    atomicOr.
+//  * K2 rr_prep_hier: for each set bit of a tile's words, slab-test that
+//    supergroup's 32 chunks per lane. A chunk's block entry is the min over
+//    the lanes that keep it of tn0 (+inf when none): a warp min, a shared
+//    atomicMin, then one global atomicMin per chunk into the block's entry
+//    row, which the caller pre-fills with +inf. Entries are >= +0 or +inf,
+//    so the int order of their bits is the float order and the min is exact
+//    in any order (tn0 is canonicalized to +0, never -0). t_last of a lane
+//    is the max tn0 over the chunks it keeps (-inf when none). Results do
+//    not depend on the tile width.
+//
+// What bounds it on the card: per tested (lane, box) pair 6 sub+mul and a
+// min/max chain; boxes are read by all lanes of a block from L1/L2 (a few
+// KB), rays once. The coarse pass gates the fine pass to the few
+// supergroups a tile can reach, as on the TPU.
+
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+namespace {
+
+struct Ray {
+  float o[3], idv[3], cap;
+};
+
+__device__ __forceinline__ Ray load_ray(const float* o, const float* idv,
+                                        const float* bud, long long r,
+                                        float t_max) {
+  Ray ray;
+  for (int k = 0; k < 3; ++k) {
+    ray.o[k] = o[3 * r + k];
+    ray.idv[k] = idv[3 * r + k];
+  }
+  ray.cap = fminf(t_max, bud[r]);
+  return ray;
+}
+
+// the reference's _slab_keep for one (ray, box); returns keep, sets tn0
+__device__ __forceinline__ bool slab_keep(const float* lo, const float* hi,
+                                          const Ray& ray, float* tn0) {
+  float t_near = 0.f, t_far = 0.f;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float t0 = __fmul_rn(__fsub_rn(lo[k], ray.o[k]), ray.idv[k]);
+    const float t1 = __fmul_rn(__fsub_rn(hi[k], ray.o[k]), ray.idv[k]);
+    const float tn = fminf(t0, t1), tf = fmaxf(t0, t1);
+    t_near = k == 0 ? tn : fmaxf(t_near, tn);
+    t_far = k == 0 ? tf : fminf(t_far, tf);
+  }
+  *tn0 = t_near > 0.f ? t_near : 0.f;
+  return (t_far >= *tn0) && (t_near <= ray.cap) && (ray.cap > 0.f);
+}
+
+// K3: grid (n_tiles, n_super / 32), block = rbt threads (one lane each)
+__global__ void coarse_words_kernel(const float* __restrict__ slo,
+                                    const float* __restrict__ shi,
+                                    const float* __restrict__ o,
+                                    const float* __restrict__ idv,
+                                    const float* __restrict__ bud, int rbt,
+                                    float t_max, int n_words,
+                                    int* __restrict__ words) {
+  __shared__ unsigned int acc;
+  const int g = blockIdx.x, w = blockIdx.y, tid = threadIdx.x;
+  if (tid == 0) acc = 0u;
+  __syncthreads();
+  const Ray ray = load_ray(o, idv, bud, (long long)g * rbt + tid, t_max);
+  unsigned int mask = 0u;
+  for (int s = 0; s < 32; ++s) {
+    const int box = w * 32 + s;
+    float tn0;
+    if (slab_keep(slo + 3 * box, shi + 3 * box, ray, &tn0)) mask |= 1u << s;
+  }
+  mask = __reduce_or_sync(0xffffffffu, mask);
+  if ((tid & 31) == 0 && mask) atomicOr(&acc, mask);
+  __syncthreads();
+  if (tid == 0) words[(long long)g * n_words + w] = (int)acc;
+}
+
+// K2: grid (n_tiles), block = rbt threads (one lane each)
+__global__ void prep_hier_kernel(const int* __restrict__ words, int n_words,
+                                 const float* __restrict__ lo,
+                                 const float* __restrict__ hi, int cp,
+                                 const float* __restrict__ o,
+                                 const float* __restrict__ idv,
+                                 const float* __restrict__ bud, int rbt,
+                                 int tiles_per_block, float t_max,
+                                 float* __restrict__ entry,
+                                 float* __restrict__ t_last) {
+  __shared__ int sm_entry[32];
+  const int g = blockIdx.x, tid = threadIdx.x;
+  const int inf_bits = __float_as_int(CUDART_INF_F);
+  const long long r = (long long)g * rbt + tid;
+  const Ray ray = load_ray(o, idv, bud, r, t_max);
+  int* entry_row = reinterpret_cast<int*>(entry) +
+                   (long long)(g / tiles_per_block) * cp;
+  if (tid < 32) sm_entry[tid] = inf_bits;
+  __syncthreads();
+  float tl = -CUDART_INF_F;
+  for (int w = 0; w < n_words; ++w) {
+    // the word is the same for every thread of the block: uniform loop
+    unsigned int bits = (unsigned int)words[(long long)g * n_words + w];
+    while (bits) {
+      const int s = w * 32 + (__ffs(bits) - 1);
+      bits &= bits - 1u;
+      for (int c = 0; c < 32; ++c) {
+        const int chunk = s * 32 + c;
+        float tn0;
+        const bool keep =
+            slab_keep(lo + 3 * chunk, hi + 3 * chunk, ray, &tn0);
+        if (keep) tl = fmaxf(tl, tn0);
+        float m = keep ? tn0 : CUDART_INF_F;
+        for (int off = 16; off > 0; off >>= 1)
+          m = fminf(m, __shfl_xor_sync(0xffffffffu, m, off));
+        if ((tid & 31) == 0 && m < CUDART_INF_F)
+          atomicMin(&sm_entry[c], __float_as_int(m));
+      }
+      __syncthreads();
+      if (tid < 32) {
+        const int v = sm_entry[tid];
+        if (v != inf_bits) atomicMin(&entry_row[s * 32 + tid], v);
+        sm_entry[tid] = inf_bits;
+      }
+      __syncthreads();
+    }
+  }
+  t_last[r] = tl;
+}
+
+}  // namespace
+
+// slo/shi (n_super, 3) supergroup boxes, n_super % 32 == 0; o/idv (G*rbt,
+// 3); bud (G*rbt,). Output words (G, n_super / 32) int32.
+extern "C" int rr_coarse_words(const float* slo, const float* shi,
+                               int n_super, const float* o, const float* idv,
+                               const float* bud, int n_tiles, int rbt,
+                               float t_max, int* words, cudaStream_t stream) {
+  if (n_super % 32 != 0 || rbt % 32 != 0 || rbt > 1024)
+    return (int)cudaErrorInvalidValue;
+  const int n_words = n_super / 32;
+  if (n_tiles == 0 || n_words == 0) return cudaSuccess;
+  coarse_words_kernel<<<dim3(n_tiles, n_words), rbt, 0, stream>>>(
+      slo, shi, o, idv, bud, rbt, t_max, n_words, words);
+  return (int)cudaGetLastError();
+}
+
+// words (G, n_words); lo/hi (cp, 3) chunk boxes with cp == 32 * 32 * n_words
+// or fewer boxes covered by set bits; o/idv/bud per lane; G = B * I tiles,
+// I = tiles_per_block. entry (B, cp) must be pre-filled with +inf. Outputs
+// entry (min-accumulated) and t_last (G * rbt,).
+extern "C" int rr_prep_hier(const int* words, int n_words, const float* lo,
+                            const float* hi, int cp, const float* o,
+                            const float* idv, const float* bud, int n_tiles,
+                            int rbt, int tiles_per_block, float t_max,
+                            float* entry, float* t_last, cudaStream_t stream) {
+  if (rbt % 32 != 0 || rbt > 1024 || tiles_per_block < 1)
+    return (int)cudaErrorInvalidValue;
+  if (n_tiles == 0) return cudaSuccess;
+  prep_hier_kernel<<<n_tiles, rbt, 0, stream>>>(
+      words, n_words, lo, hi, cp, o, idv, bud, rbt, tiles_per_block, t_max,
+      entry, t_last);
+  return (int)cudaGetLastError();
+}

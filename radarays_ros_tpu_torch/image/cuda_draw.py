@@ -1,0 +1,86 @@
+"""Signal binning with fused denoise taps: the CUDA kernel K5 and its plain
+torch version (counterpart of radarays_ros_tpu/image/pallas_draw.py).
+
+`bin_signals(cell, s, ...)` bins (A, N) (cell, strength) signals into an
+(A, n_cells) image — sum, optionally followed by the W denoise taps
+img[c] += w[k] * point[c - (k - mode)], or max clamped at >= 0. Invalid
+signals must arrive with a cell outside [0, n_cells) (image/draw.py maps
+them to n_cells). The sum runs in signal order and the taps in k order
+from 0.0, each product and sum rounded separately: the f32 order of the
+reference's kernel and shift-add (image/draw.py:145-149), so the kernel
+and the plain version agree bit for bit. (The reference's kernel run in
+interpret mode on XLA:CPU has some tap multiply-adds contracted into FMAs;
+there the taps agree to 2 ulp, tests/test_torch_draw.py.)
+
+Forward only: the backward (the reference's XLA _bin_bwd) comes with the
+gradient-based optimisation.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _bin_plain(cell, s, *, n_cells: int, combine: str, weights=None,
+               w_mode: int = 0):
+    """Plain K5: serial per-signal accumulation (one scatter per signal
+    index, so no row sees two updates in one step and the f32 order is the
+    signal order), then the taps as W shifted multiply-adds."""
+    A, N = cell.shape
+    ok = (cell >= 0) & (cell < n_cells)
+    idx = torch.where(ok, cell, n_cells).long()
+    if combine == "max":
+        img = torch.full((A, n_cells + 1), -torch.inf, device=s.device)
+        img.scatter_reduce_(1, idx, torch.where(ok, s, -torch.inf), "amax")
+        return torch.clamp_min(img[:, :n_cells], 0.0)
+    point = torch.zeros((A, n_cells + 1), device=s.device)
+    sv = torch.where(ok, s, 0.0)
+    for n in range(N):
+        point.scatter_add_(1, idx[:, n:n + 1], sv[:, n:n + 1])
+    point = point[:, :n_cells]
+    if weights is None:
+        return point
+    W = len(weights)
+    padded = torch.nn.functional.pad(point, (W - 1, W - 1))
+    img = torch.zeros_like(point)
+    for k in range(W):
+        off = (W - 1) - (k - w_mode)
+        img = img + float(weights[k]) * padded[:, off:off + n_cells]
+    return img
+
+
+def bin_signals(cell, s, *, n_cells: int, combine: str = "sum", weights=None,
+                w_mode: int = 0):
+    """K5 wrapper: plain version on CPU tensors, the CUDA kernel rr_bin on
+    CUDA tensors. cell (A, N) int32, s (A, N) float32; weights (static
+    float32 taps, combine "sum" only) and w_mode fuse the denoise."""
+    if combine not in ("sum", "max"):
+        raise ValueError(f"unknown combine {combine!r}")
+    if weights is not None and combine != "sum":
+        raise ValueError("fused denoise taps require combine='sum'")
+    if s.device.type == "cpu":
+        return _bin_plain(cell, s, n_cells=n_cells, combine=combine,
+                          weights=weights, w_mode=w_mode)
+    from radarays_ros_tpu_torch import cuda_build
+
+    cuda_build.check_tensors("bin_signals", cell, s,
+                             dtypes=(torch.int32, torch.float32))
+    if cell.shape != s.shape or cell.dim() != 2:
+        raise ValueError("bin_signals: cell and s must be the same (A, N)")
+    A, N = cell.shape
+    out = torch.empty((A, n_cells), dtype=torch.float32, device=s.device)
+    w = None
+    if weights is not None:
+        w = torch.as_tensor(np.asarray(weights, np.float32), device=s.device)
+    lib = cuda_build.build().lib
+    cuda_build.check(lib.rr_bin(
+        cell.data_ptr(), s.data_ptr(), A, N, n_cells,
+        None if w is None else w.data_ptr(), 0 if w is None else w.numel(),
+        int(w_mode), int(combine == "max"), out.data_ptr(),
+        cuda_build.stream_ptr(s)), "rr_bin")
+    bin_signals.launches += 1
+    return out
+
+
+bin_signals.launches = 0

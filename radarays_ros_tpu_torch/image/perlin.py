@@ -1,0 +1,107 @@
+"""Rowwise 2-D Perlin noise for the ambient-noise stage (counterpart of
+radarays_ros_tpu/image/perlin.py:perlin_affine_rows).
+
+Ken Perlin's improved noise with the canonical permutation
+(image_algorithms.h:14-50). The reference expands per-interval constants to
+per-cell values with one-hot selection matmuls because table gathers are
+slow on a TPU; here they are direct gathers, which give the same values
+(each one-hot product picks exactly one term).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_PERM256 = np.array([
+    151, 160, 137, 91, 90, 15, 131, 13, 201, 95, 96, 53, 194, 233, 7, 225,
+    140, 36, 103, 30, 69, 142, 8, 99, 37, 240, 21, 10, 23, 190, 6, 148,
+    247, 120, 234, 75, 0, 26, 197, 62, 94, 252, 219, 203, 117, 35, 11, 32,
+    57, 177, 33, 88, 237, 149, 56, 87, 174, 20, 125, 136, 171, 168, 68, 175,
+    74, 165, 71, 134, 139, 48, 27, 166, 77, 146, 158, 231, 83, 111, 229, 122,
+    60, 211, 133, 230, 220, 105, 92, 41, 55, 46, 245, 40, 244, 102, 143, 54,
+    65, 25, 63, 161, 1, 216, 80, 73, 209, 76, 132, 187, 208, 89, 18, 169,
+    200, 196, 135, 130, 116, 188, 159, 86, 164, 100, 109, 198, 173, 186, 3, 64,
+    52, 217, 226, 250, 124, 123, 5, 202, 38, 147, 118, 126, 255, 82, 85, 212,
+    207, 206, 59, 227, 47, 16, 58, 17, 182, 189, 28, 42, 223, 183, 170, 213,
+    119, 248, 152, 2, 44, 154, 163, 70, 221, 153, 101, 155, 167, 43, 172, 9,
+    129, 22, 39, 253, 19, 98, 108, 110, 79, 113, 224, 232, 178, 185, 112, 104,
+    218, 246, 97, 228, 251, 34, 242, 193, 238, 210, 144, 12, 191, 179, 162, 241,
+    81, 51, 145, 235, 249, 14, 239, 107, 49, 192, 214, 31, 181, 199, 106, 157,
+    184, 84, 204, 176, 115, 121, 50, 45, 127, 4, 150, 254, 138, 236, 205, 93,
+    222, 114, 67, 29, 24, 72, 243, 141, 128, 195, 78, 66, 215, 61, 156, 180,
+], np.int64)
+PERM = np.concatenate([_PERM256, _PERM256])
+
+
+def _hash_stack() -> np.ndarray:
+    """(256_y, 256_x, 4) corner hashes [G, G2, G(x+1), G2(x+1)] with
+    G[x, y] = perm[perm[perm[x] + y]] & 15 and G2[x, y] the same at y + 1."""
+    a = PERM[np.arange(256)][:, None] + np.arange(256)[None, :]
+    g = PERM[PERM[a]] & 15
+    g2 = PERM[PERM[a + 1]] & 15
+    st = np.stack([g, g2, np.roll(g, -1, axis=0), np.roll(g2, -1, axis=0)],
+                  axis=-1)
+    return np.ascontiguousarray(st.transpose(1, 0, 2))
+
+
+_HASH_STACK = _hash_stack()
+
+
+def _fade(t):
+    return t * t * t * (t * (t * 6.0 - 15.0) + 10.0)
+
+
+def _alpha_beta(h):
+    """grad(h, x, y, 0) = alpha * x + beta * y for a 4-bit hash h."""
+    su = torch.where(h & 1 == 0, 1.0, -1.0)
+    sv = torch.where(h & 2 == 0, 1.0, -1.0)
+    lo8 = h < 8
+    alpha = torch.where(lo8, su, 0.0) + torch.where((h == 12) | (h == 14),
+                                                    sv, 0.0)
+    beta = torch.where(lo8, 0.0, su) + torch.where(h < 4, sv, 0.0)
+    return alpha, beta
+
+
+def perlin_affine_rows(x0_int, y, scale: float, n_cells: int) -> torch.Tensor:
+    """(A, n_cells) Perlin noise at x = x0_int[a] + i*scale, y[a].
+
+    x0_int: (A,) integer row offsets; y: (A,) float rows. Equals classic
+    perlin_noise(x0_int[:, None] + i*scale, y[:, None]) because the integer
+    offsets share the x lattice phase across rows."""
+    x0_int = torch.as_tensor(x0_int).to(torch.int64)
+    y = torch.as_tensor(y, dtype=torch.float32)
+    dev = y.device
+
+    i = torch.arange(n_cells, dtype=torch.float32, device=dev) \
+        * float(np.float32(scale))
+    fi = torch.floor(i)
+    k_cell = fi.to(torch.int64)          # lattice interval of each cell
+    t = i - fi
+    u = _fade(t)
+    K = int(np.floor((n_cells - 1) * float(scale))) + 1
+
+    fy = torch.floor(y)
+    Y = fy.to(torch.int64) & 255
+    yf = y - fy
+    v = _fade(yf)
+
+    Xk = (x0_int[:, None] + torch.arange(K + 1, device=dev)[None, :]) & 255
+    hs = torch.as_tensor(_HASH_STACK, device=dev)
+    hashes = hs[Y[:, None], Xk]                          # (A, K+1, 4)
+    aAA, bAA = _alpha_beta(hashes[..., 0])
+    aAB, bAB = _alpha_beta(hashes[..., 1])
+    aBA, bBA = _alpha_beta(hashes[..., 2])
+    aBB, bBB = _alpha_beta(hashes[..., 3])
+    v_ = v[:, None]
+    yf_ = yf[:, None]
+    a0 = ((1 - v_) * aAA + v_ * aAB)[:, :K]
+    c0 = ((1 - v_) * bAA * yf_ + v_ * bAB * (yf_ - 1.0))[:, :K]
+    a1 = ((1 - v_) * aBA + v_ * aBB)[:, :K]
+    c1 = ((1 - v_) * bBA * yf_ + v_ * bBB * (yf_ - 1.0))[:, :K]
+
+    A0, C0 = a0[:, k_cell], c0[:, k_cell]
+    A1, C1 = a1[:, k_cell], c1[:, k_cell]
+    t_ = t[None, :]
+    u_ = u[None, :]
+    return (1.0 - u_) * (t_ * A0 + C0) + u_ * ((t_ - 1.0) * A1 + C1)

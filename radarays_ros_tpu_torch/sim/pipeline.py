@@ -1,0 +1,274 @@
+"""The radar frame: pose(s) -> uint8 polar image (counterpart of
+radarays_ros_tpu/sim/pipeline.py).
+
+One frame: cone sampling, the pose and azimuth rotations, `n_reflections`
+bounces (trace under the per-ray image-range budget, material from the
+per-triangle aux column, Fresnel reflection, back-reflection shading, the
+path-return signal), binning with the fused denoise, the energy scale,
+ambient noise, per-column u8 normalization and the scroll.
+
+Only the opaque fast path of `collect_signals` is ported (every non-air
+material has velocity 0, so the refraction branch is provably dead, the
+reference's lax.scan path at :263-276); the refraction tree and multipath
+returns raise NotImplementedError.
+
+Random inputs: torch's generators do not reproduce JAX's streams, so the
+frame entry points take the cone directions `local_dirs`, the Perlin row
+offsets `random_begin` and the uniform noise field `uniform` as optional
+explicit inputs (the scope rule of tests/numpy_oracle.py); absent ones are
+drawn from `generator`.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from radarays_ros_tpu_torch.geom.scene import SceneTensors
+from radarays_ros_tpu_torch.image.draw import (apply_ambient_noise,
+                                               draw_signals, normalize_to_u8)
+from radarays_ros_tpu_torch.sim.config import RadarModelConfig, RadarParams
+from radarays_ros_tpu_torch.trace.api import resolve_engine, trace
+from radarays_ros_tpu_torch.utils.transforms import (azimuth_angles,
+                                                     pose_matrix, rotz)
+from radarays_ros_tpu_torch.wave.cone import sample_cone_local
+from radarays_ros_tpu_torch.wave.fresnel import (back_reflection_shader,
+                                                 cook_torrance_shader,
+                                                 fresnel_split,
+                                                 get_incidence_angle)
+from radarays_ros_tpu_torch.wave.types import (Waves, broadcast_waves,
+                                               make_start_wave_attrs)
+
+
+class FrameResult(NamedTuple):
+    image_u8: torch.Tensor     # ([N,] n_cells, n_angles) uint8 polar image
+    image_float: torch.Tensor  # ([N,] n_angles, n_cells) float32
+    max_val: torch.Tensor      # ([N,] n_angles) per-column raw signal max
+
+
+def _shade(cfg: RadarModelConfig, params: RadarParams, mat_id, angle, energy):
+    """Back-reflection shading; material (ambient, diffuse, specular) ->
+    shader (diffuse, specular_fac, specular_exp) (RadarCPU.cpp:310-316)."""
+    m = params.materials
+    if cfg.reflection_model == "cook_torrance":
+        return cook_torrance_shader(
+            angle, energy,
+            roughness=torch.clamp_min(m.diffuse[mat_id], 1e-3),
+            fresnel_f0=torch.clamp(m.specular[mat_id] / 3000.0, 0.0, 1.0),
+            k_diffuse=torch.clamp(m.ambient[mat_id], 0.0, 1.0))
+    return back_reflection_shader(angle, energy, diffuse=m.ambient[mat_id],
+                                  specular_fac=m.diffuse[mat_id],
+                                  specular_exp=m.specular[mat_id])
+
+
+def _trace_ray_major(cfg, scene, waves: Waves, budget):
+    """Trace an (N, A, S) wave batch with the frame axis innermost in ray
+    order (ray-major, as the reference's batching rule at
+    pallas_trace.py:774-788): rays of one block then span few azimuths
+    across nearby frames, which keeps block frustums narrow."""
+    def rm(x):      # (N, A, S, ...) -> (A, S, N, ...)
+        return x.movedim(0, 2)
+
+    engine = resolve_engine(cfg.trace_engine, waves.orig.device)
+    kw = {} if engine == "brute" else dict(ray_block=cfg.trace_ray_block,
+                                           prep_group=cfg.trace_prep_group)
+    res = trace(scene, rm(waves.orig), rm(waves.dir), engine=engine,
+                t_budget=rm(budget), with_aux=cfg.trace_aux_baked,
+                t_min=0.0, t_max=1000.0, **kw)
+    return type(res)(*(None if x is None else x.movedim(2, 0) for x in res))
+
+
+def trace_budget(cfg: RadarModelConfig, waves: Waves) -> torch.Tensor:
+    """Per-ray trace budget [m]: the image covers n_cells*resolution meters
+    of one-way distance and travel time only grows, so a hit arriving past
+    the image (plus the denoise splat reach) contributes nothing, nor do its
+    descendants — clamping the trace there is exact (the reference's
+    sim/pipeline.py:92-109)."""
+    weights, _ = cfg.denoiser()
+    slack = 0 if weights is None else len(weights)
+    t_lim = (cfg.n_cells + slack) * cfg.resolution / 0.3
+    return torch.clamp_min(t_lim - waves.time, 0.0) * waves.velocity
+
+
+def _bounce(cfg: RadarModelConfig, params: RadarParams, scene: SceneTensors,
+            waves: Waves, pass_id: int):
+    """One reflection pass over an (N, A, S) wave batch: returns the
+    reflected waves and the path-return signal (time, strength, valid)."""
+    res = _trace_ray_major(cfg, scene, waves, trace_budget(cfg, waves))
+
+    alive = waves.valid & res.hit
+    incidence = waves.move(torch.where(alive, res.t, 0.0))
+
+    # material flip: air -> hit object's material, material -> air
+    in_air = waves.material_id == cfg.material_id_air
+    if cfg.trace_aux_baked:
+        hit_mat = res.aux.to(torch.int32)
+    else:
+        om = params.object_materials
+        hit_mat = om[torch.clamp(res.obj_id, 0, om.shape[0] - 1).long()]
+    refr_mat = torch.where(in_air, hit_mat, cfg.material_id_air).long()
+    same = refr_mat == waves.material_id
+    v2 = torch.where(same, waves.velocity,
+                     params.materials.velocity[refr_mat])
+    fres = fresnel_split(res.normal, waves.dir, incidence.energy,
+                         incidence.polarization, incidence.velocity, v2)
+
+    refl_valid = alive & (fres.reflection_energy > cfg.wave_energy_threshold)
+    reflection = incidence._replace(
+        dir=fres.reflection_dir, energy=fres.reflection_energy,
+        valid=refl_valid).move(cfg.skip_dist)
+
+    inc_angle = get_incidence_angle(res.normal, waves.dir)
+    ret_energy = _shade(cfg, params, refr_mat, inc_angle,
+                        fres.reflection_energy)
+    path_valid = refl_valid & in_air
+    if not (pass_id == 0 or cfg.record_multi_reflection):
+        path_valid = torch.zeros_like(path_valid)
+    return reflection, (incidence.time * 2.0, ret_energy, path_valid)
+
+
+def collect_signals(scene: SceneTensors, params: RadarParams,
+                    cfg: RadarModelConfig, waves: Waves):
+    """All bounce passes of an (N, A, S) batch; returns (times, strengths,
+    valid) shaped (N, A, P*S), pass-major within a row (the reference's
+    signal order, sim/pipeline.py:270-276, which fixes K5's sum order)."""
+    if not cfg.opaque_materials:
+        raise NotImplementedError(
+            "only the opaque fast path is ported: the refraction tree "
+            "(sim/pipeline.py:277-289 of the reference) is not")
+    if cfg.record_multi_path:
+        raise NotImplementedError("multipath returns are not ported yet")
+    sigs = []
+    for pass_id in range(cfg.n_reflections):
+        waves, sig = _bounce(cfg, params, scene, waves, pass_id)
+        sigs.append(sig)
+    N, A, S = waves.batch_shape
+
+    def flat(i):    # P x (N, A, S) -> (N, A, P*S)
+        return torch.stack([s[i] for s in sigs], dim=2).reshape(N, A, -1)
+
+    return flat(0), flat(1), flat(2)
+
+
+def start_waves(params: RadarParams, cfg: RadarModelConfig, poses, *,
+                local_dirs: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                device="cpu") -> Waves:
+    """The transmitted (N, A, S) wave batch: poses (N, 7) or (N, A, 7);
+    local_dirs (S, 3) or (N, S, 3), drawn from `generator` when absent."""
+    A, S = cfg.n_angles, cfg.n_samples
+    poses = torch.as_tensor(poses, dtype=torch.float32, device=device)
+    N = poses.shape[0]
+    if poses.dim() == 2:
+        poses = poses[:, None, :].expand(N, A, 7)
+    if local_dirs is None:
+        local_dirs = torch.stack([sample_cone_local(
+            generator, params.beam_width, S, cfg.beam_sample_dist,
+            cfg.beam_sample_dist_normal_p_in_cone) for _ in range(N)])
+    local_dirs = torch.as_tensor(local_dirs, dtype=torch.float32,
+                                 device=device).expand(N, S, 3)
+    # beam frame -> map frame: R_am = R_sm @ Rz(theta_a), in true f32
+    # (TF32 is off package-wide; RadarCPU.cpp:198-209)
+    R_sm, t_sm = pose_matrix(poses)                       # (N, A, 3, 3)
+    R_am = torch.matmul(R_sm, rotz(azimuth_angles(A, device)))
+    dirs0 = torch.einsum("naij,nsj->nasi", R_am, local_dirs)
+    sensor_pos = t_sm + torch.tensor([0.0, 0.0, cfg.z_offset], device=device)
+    return broadcast_waves(
+        sensor_pos[:, :, None, :], dirs0,
+        make_start_wave_attrs(material_id=cfg.material_id_air), (N, A, S))
+
+
+def simulate_frames(scene: SceneTensors, params: RadarParams,
+                    cfg: RadarModelConfig, poses, *,
+                    local_dirs: Optional[torch.Tensor] = None,
+                    random_begin: Optional[torch.Tensor] = None,
+                    uniform: Optional[torch.Tensor] = None,
+                    generator: Optional[torch.Generator] = None
+                    ) -> FrameResult:
+    """A batch of N frames on the scene's device.
+
+    poses: (N, 7) one pose per frame or (N, n_angles, 7) per-azimuth poses.
+    local_dirs: (S, 3) or (N, S, 3) beam-frame cone directions;
+    random_begin: (N, A) Perlin row offsets; uniform: (N, A, n_cells)
+    field — each drawn from `generator` when absent (and needed).
+    Returns FrameResult with a leading N axis on every field.
+    """
+    dev = scene.device
+    A, n_cells = cfg.n_angles, cfg.n_cells
+    waves = start_waves(params, cfg, poses, local_dirs=local_dirs,
+                        generator=generator, device=dev)
+    N = waves.batch_shape[0]
+    times, strengths, valid = collect_signals(scene, params, cfg, waves)
+    weights, mode = cfg.denoiser()
+    img, max_val = draw_signals(
+        times.reshape(N * A, -1), strengths.reshape(N * A, -1),
+        valid.reshape(N * A, -1), n_cells=n_cells,
+        resolution=cfg.resolution, denoise_weights=weights,
+        denoise_mode=mode, method=cfg.draw_method)
+    img = img * cfg.energy_max                           # RadarCPU.cpp:453
+
+    cols = (cfg.scroll_image + torch.arange(A, device=dev)) % A
+    if cfg.ambient_noise == 2 and random_begin is None:
+        random_begin = torch.randint(0, 1000, (N, A), generator=generator,
+                                     device=dev)
+    if cfg.ambient_noise == 1 and uniform is None:
+        uniform = torch.rand((N, A, n_cells), generator=generator,
+                             device=dev)
+    img = apply_ambient_noise(
+        img, max_val, cols.repeat(N), mode=cfg.ambient_noise,
+        resolution=cfg.resolution,
+        at_signal_0=cfg.ambient_noise_at_signal_0,
+        at_signal_1=cfg.ambient_noise_at_signal_1,
+        energy_max=cfg.ambient_noise_energy_max,
+        energy_min=cfg.ambient_noise_energy_min,
+        energy_loss=cfg.ambient_noise_energy_loss,
+        perlin_scale_low=cfg.ambient_noise_perlin_scale_low,
+        perlin_scale_high=cfg.ambient_noise_perlin_scale_high,
+        perlin_p_low=cfg.ambient_noise_perlin_p_low,
+        random_begin=None if random_begin is None else
+        torch.as_tensor(random_begin, device=dev).reshape(N * A),
+        uniform=None if uniform is None else
+        torch.as_tensor(uniform, dtype=torch.float32,
+                        device=dev).reshape(N * A, n_cells))
+
+    u8 = normalize_to_u8(img, max_val, cfg.signal_max).view(N, A, n_cells)
+    # place azimuth a at column (scroll_image + a) % A (RadarCPU.cpp:457,542)
+    placed = torch.zeros_like(u8)
+    placed[:, cols] = u8
+    return FrameResult(image_u8=placed.transpose(1, 2).contiguous(),
+                       image_float=img.view(N, A, n_cells),
+                       max_val=max_val.view(N, A))
+
+
+def simulate_frame(scene: SceneTensors, params: RadarParams,
+                   cfg: RadarModelConfig, pose, *,
+                   local_dirs: Optional[torch.Tensor] = None,
+                   random_begin: Optional[torch.Tensor] = None,
+                   uniform: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None
+                   ) -> FrameResult:
+    """One frame at a (7,) pose or (n_angles, 7) per-azimuth poses; the
+    explicit random inputs are unbatched ((S, 3), (A,), (A, n_cells))."""
+    def one(x):
+        return None if x is None else torch.as_tensor(x)[None]
+
+    res = simulate_frames(scene, params, cfg, one(pose),
+                          local_dirs=local_dirs, random_begin=one(random_begin),
+                          uniform=one(uniform), generator=generator)
+    return FrameResult(*(x[0] for x in res))
+
+
+def float_u8_image(res: FrameResult, cfg: RadarModelConfig) -> torch.Tensor:
+    """Differentiable float stand-in for `image_u8` on the 0..255 scale: the
+    same per-column normalization, clip and scroll without the rounding
+    (|float_u8_image - image_u8| <= 0.5), shaped like image_u8."""
+    mv = res.max_val
+    pos = mv > 0.0
+    scale = torch.where(pos, cfg.signal_max / torch.where(pos, mv, 1.0), 0.0)
+    img = torch.clamp(res.image_float * scale[..., None], 0.0, 255.0)
+    A = cfg.n_angles
+    cols = (cfg.scroll_image + torch.arange(A, device=img.device)) % A
+    placed = torch.zeros_like(img)
+    placed[..., cols, :] = img
+    return placed.transpose(-1, -2)

@@ -1,0 +1,107 @@
+"""`Radar` — the stateful simulator front-end (counterpart of
+radarays_ros_tpu/sim/radar.py, after Radar.hpp:34-107).
+
+Owns the scene tensors, materials, configuration and random streams on one
+device; `simulate(pose)` returns one polar frame. The transmit cone is drawn
+once and kept across frames (the reference's cached m_waves_start,
+RadarCPU.cpp:136-145) until the sample count changes; ambient noise is drawn
+anew for every frame from its own generator. The pose-extrapolation fallback
+(`extrapolate_pose`) is not ported yet: `simulate()` without a pose reuses
+the last one.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from radarays_ros_tpu_torch.geom.scene import Scene, bake_tri_aux
+from radarays_ros_tpu_torch.sim.config import (Materials, RadarModelConfig,
+                                               RadarParams, default_params)
+from radarays_ros_tpu_torch.sim.pipeline import FrameResult, simulate_frame
+from radarays_ros_tpu_torch.utils.transforms import identity_pose
+from radarays_ros_tpu_torch.wave.cone import sample_cone_local
+
+
+class Radar:
+    def __init__(self, scene: Scene, params: Optional[RadarParams] = None,
+                 cfg: Optional[RadarModelConfig] = None, seed: int = 0,
+                 device="cpu"):
+        self.device = torch.device(device)
+        self.scene = scene
+        self._scene_tensors = scene.to_device(self.device)
+        if params is None:
+            params, default_cfg = default_params(scene.n_objects)
+            cfg = cfg or default_cfg
+        self.params = params.to(self.device)
+        self.cfg = cfg or RadarModelConfig()
+        self._cone_gen = torch.Generator(self.device).manual_seed(2 * seed)
+        self._noise_gen = torch.Generator(self.device).manual_seed(2 * seed + 1)
+        self._local_dirs = None
+        self._last_pose = identity_pose()
+        self._auto_opaque()
+        self._bake_aux()
+
+    # ------------------------------------------------------------ config
+
+    def update_params(self, params: RadarParams) -> None:
+        self.params = params.to(self.device)
+        self._auto_opaque()
+        self._bake_aux()
+
+    def load_materials(self, entries, object_materials) -> None:
+        """loadParams() equivalent (Radar.cpp:220-226)."""
+        self.update_params(RadarParams(
+            Materials.from_list(entries, device=self.device),
+            torch.as_tensor(np.asarray(object_materials, np.int32),
+                            device=self.device),
+            self.params.beam_width))
+
+    def _bake_aux(self) -> None:
+        """Bake the object->material map into the scene's per-triangle aux
+        column (clipped like the pipeline's gather), so each trace returns
+        the hit's material without a per-bounce gather."""
+        st = self._scene_tensors
+        om = self.params.object_materials
+        row = om.to(torch.float32)[
+            torch.clamp(st.obj_ids, 0, om.shape[0] - 1).long()]
+        self._scene_tensors = bake_tri_aux(st, row)
+        if not self.cfg.trace_aux_baked:
+            self.cfg = self.cfg.replace(trace_aux_baked=True)
+
+    def _auto_opaque(self) -> None:
+        """Set opaque_materials when it is provably exact: every non-air
+        material has velocity 0, so Fresnel transmits nothing."""
+        vel = self.params.materials.velocity.cpu().numpy()
+        mask = np.ones(vel.shape[0], bool)
+        air = self.cfg.material_id_air
+        if 0 <= air < vel.shape[0]:
+            mask[air] = False
+        opaque = bool(np.all(vel[mask] == 0.0)) if mask.any() else False
+        if opaque != self.cfg.opaque_materials:
+            self.cfg = self.cfg.replace(opaque_materials=opaque)
+
+    # ------------------------------------------------------------ simulate
+
+    def simulate(self, pose=None) -> FrameResult:
+        """One frame at a (7,) [t, q_xyzw] pose or (n_angles, 7) per-azimuth
+        poses; None reuses the last pose."""
+        if pose is None:
+            pose = self._last_pose
+        self._last_pose = np.asarray(pose, np.float32)
+        cfg = self.cfg
+        if self._local_dirs is None \
+                or self._local_dirs.shape[0] != cfg.n_samples:
+            self._local_dirs = sample_cone_local(
+                self._cone_gen, self.params.beam_width, cfg.n_samples,
+                cfg.beam_sample_dist, cfg.beam_sample_dist_normal_p_in_cone)
+        return simulate_frame(self._scene_tensors, self.params, cfg,
+                              torch.as_tensor(self._last_pose),
+                              local_dirs=self._local_dirs,
+                              generator=self._noise_gen)
+
+    def simulate_image(self, pose=None) -> np.ndarray:
+        """uint8 (n_cells, n_angles) numpy polar image."""
+        return self.simulate(pose).image_u8.cpu().numpy()

@@ -1,0 +1,90 @@
+"""Tracing front-end: one call, several engines (counterpart of
+radarays_ros_tpu/trace/api.py).
+
+Nearest-hit contract of rmagine's OnDn simulators (RadarCPU.cpp:222-236):
+for each ray, whether it hit, the distance, the normal oriented against
+the ray and the object id of the nearest triangle.
+
+Engines:
+  * "brute"  — Moller-Trumbore over all triangles (trace/intersect.py), the
+               correctness oracle;
+  * "sweep"  — the ranked chunk sweep with early termination in plain torch
+               (the plain versions of the kernels in trace/cuda_trace.py);
+  * "kernel" — the same algorithm through the kernel wrappers: the CUDA
+               kernels on CUDA tensors, their plain versions on CPU tensors;
+  * "auto"   — "kernel" for CUDA tensors, "sweep" for CPU tensors.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from radarays_ros_tpu_torch.geom.scene import INVALID_OBJ_ID
+
+ENGINES = ("auto", "brute", "sweep", "kernel")
+
+
+class TraceResult(NamedTuple):
+    hit: torch.Tensor      # (...,) bool
+    t: torch.Tensor        # (...,) float32 hit distance (inf on miss)
+    normal: torch.Tensor   # (..., 3) float32 unit normal, against the ray
+    obj_id: torch.Tensor   # (...,) int32 object id (INVALID on miss)
+    # per-hit value of the scene's per-triangle aux column (the baked
+    # material map, geom/scene.py:bake_tri_aux); 0.0 on miss. Only the
+    # sweep engines fetch it (trace(with_aux=True)).
+    aux: Optional[torch.Tensor] = None
+
+
+def resolve_engine(engine: str, device) -> str:
+    """Resolve "auto" for the device the rays live on."""
+    if engine == "auto":
+        return "kernel" if torch.device(device).type == "cuda" else "sweep"
+    if engine not in ENGINES:
+        raise ValueError(f"unknown trace engine {engine!r}")
+    return engine
+
+
+def trace(scene, origs, dirs, engine: str = "auto", t_budget=None,
+          with_aux: bool = False, **kwargs) -> TraceResult:
+    """Trace rays against a SceneTensors; origs/dirs shaped (..., 3).
+
+    t_budget: optional per-ray maximum hit distance shaped like
+    origs[..., 0]. A hit beyond a ray's budget is a MISS for every engine
+    alike; the sweep engines also use the budget to prune chunks, which is
+    exact (a within-budget hit lies in a chunk entered within budget).
+    kwargs go to the engine: t_min, t_max, and for the sweep engines
+    ray_block and prep_group.
+    """
+    batch_shape = origs.shape[:-1]
+    o = origs.reshape(-1, 3)
+    d = dirs.reshape(-1, 3)
+    b = None if t_budget is None else \
+        torch.as_tensor(t_budget, dtype=torch.float32).reshape(-1)
+    engine = resolve_engine(engine, o.device)
+    if engine == "brute":
+        from radarays_ros_tpu_torch.trace.intersect import trace_brute
+        res = trace_brute(scene, o, d, **kwargs)
+    else:
+        from radarays_ros_tpu_torch.trace.cuda_trace import trace_sweep
+        res = trace_sweep(scene, o, d, t_budget=b, with_aux=with_aux,
+                          kernels=engine == "kernel", **kwargs)
+    if b is not None:
+        # uniform budget contract: the nearest hit beyond budget is a miss
+        # (then every farther hit is too, so masking the nearest is exact)
+        ok = res.hit & (res.t <= b)
+        res = TraceResult(
+            hit=ok,
+            t=torch.where(ok, res.t, torch.inf),
+            normal=torch.where(ok[:, None], res.normal, 0.0),
+            obj_id=torch.where(ok, res.obj_id, int(INVALID_OBJ_ID)),
+            aux=None if res.aux is None else torch.where(ok, res.aux, 0.0),
+        )
+    return TraceResult(
+        hit=res.hit.reshape(batch_shape),
+        t=res.t.reshape(batch_shape),
+        normal=res.normal.reshape(batch_shape + (3,)),
+        obj_id=res.obj_id.reshape(batch_shape),
+        aux=None if res.aux is None else res.aux.reshape(batch_shape),
+    )

@@ -1,0 +1,211 @@
+"""The port's trace (radarays_ros_tpu_torch.trace) against the JAX package.
+
+The culling prep (coarse words K3, hierarchical prep K2) and the ranked
+sweep (K1) run here as their plain torch versions — the kernel wrappers
+take them for CPU tensors — and are held against the reference's Pallas
+kernels in interpret mode on the same inputs, and against the brute
+Moller-Trumbore oracles of both packages under the contract of
+tests/test_trace.py:77-83 (hit and obj_id equal, t within 1e-4).
+
+The scene (make_urban_scene(200, 60, seed=3) at chunk size 8) has 304
+chunks, at least 8 groups of 32, so both packages take the hierarchical
+prep.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from radarays_ros_tpu.geom.primitives import make_urban_scene as jx_urban
+from radarays_ros_tpu.geom.scene import Scene as JxScene
+from radarays_ros_tpu.trace import pallas_trace as JP
+from radarays_ros_tpu.trace.api import trace as jx_trace
+
+from radarays_ros_tpu_torch.geom.primitives import make_urban_scene
+from radarays_ros_tpu_torch.geom.scene import INVALID_OBJ_ID, Scene
+from radarays_ros_tpu_torch.trace import cuda_trace as CT
+from radarays_ros_tpu_torch.trace.api import resolve_engine, trace
+
+torch.set_num_threads(2)
+
+RB = 128
+
+
+@pytest.fixture(scope="module")
+def scenes():
+    parts, names = make_urban_scene(n_buildings=200, extent=60.0, seed=3)
+    st = Scene.compose(parts, names, chunk_size=8).to_device("cpu")
+    jparts, jnames = jx_urban(n_buildings=200, extent=60.0, seed=3)
+    sa = JxScene.compose(jparts, jnames, chunk_size=8).device_arrays(
+        cache=False)
+    assert st.n_chunks == 304 and st.n_chunks >= 8 * CT._SG
+    return st, sa
+
+
+def _fan(n, seed, el_lo=-0.2, el_hi=0.5, budgets=(10.0, 50.0, 1000.0)):
+    rng = np.random.default_rng(seed)
+    az = rng.uniform(0, 2 * np.pi, n)
+    el = rng.uniform(el_lo, el_hi, n)
+    d = np.stack([np.cos(el) * np.cos(az), np.cos(el) * np.sin(az),
+                  np.sin(el)], -1).astype(np.float32)
+    o = np.broadcast_to(np.array([0, 0, 2.0], np.float32), (n, 3)).copy()
+    bud = rng.choice(budgets, n).astype(np.float32)
+    return o, d, bud
+
+
+def _prep_args(st, n=512, seed=0):
+    o, d, bud = _fan(n, seed)
+    return CT._prep_inputs(st, torch.from_numpy(o), torch.from_numpy(d),
+                           torch.from_numpy(bud), ray_block=RB, group=1)
+
+
+def test_coarse_words_match_reference(scenes):
+    """Plain K3 words equal the reference's _coarse_bitmap (interpret)."""
+    st, _ = scenes
+    o, d, inv_d, bud, lo, hi, C2 = _prep_args(st)
+    Cp = lo.shape[0]
+    slo, shi = CT._coarse_boxes(lo, hi)
+    rbt = 128
+    got = CT.coarse_words(slo, shi, o, inv_d, bud, 1000.0, rbt)
+    G = o.shape[0] // rbt
+    ref = JP._coarse_bitmap(
+        jnp.asarray(lo.numpy()), jnp.asarray(hi.numpy()),
+        jnp.asarray(o.numpy().reshape(G, rbt, 3).transpose(0, 2, 1)),
+        jnp.asarray(inv_d.numpy().reshape(G, rbt, 3).transpose(0, 2, 1)),
+        jnp.asarray(bud.numpy().reshape(G, 1, rbt)), Cp=Cp, t_max=1000.0,
+        interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    assert (got != 0).any()
+
+
+@pytest.mark.parametrize("kernels", [False, True])
+def test_hier_prep_matches_reference(scenes, kernels):
+    """Plain K2 entry and t_last equal the reference's _run_prep_kernel
+    (interpret) bit for bit, via the plain functions and the wrappers."""
+    st, _ = scenes
+    o, d, inv_d, bud, lo, hi, C2 = _prep_args(st)
+    Cp = lo.shape[0]
+    B = o.shape[0] // RB
+    entry, t_last = CT._run_prep(lo, hi, o, inv_d, bud, t_max=1000.0, RB=RB,
+                                 kernels=kernels)
+    r_entry, r_tlast = JP._run_prep_kernel(
+        jnp.asarray(lo.numpy()), jnp.asarray(hi.numpy()),
+        jnp.asarray(o.numpy().reshape(B, RB, 3).transpose(0, 2, 1)),
+        jnp.asarray(inv_d.numpy().reshape(B, RB, 3).transpose(0, 2, 1)),
+        jnp.asarray(bud.numpy().reshape(B, 1, RB)), Cp=Cp, RB=RB,
+        n_blocks=B, t_max=1000.0, interpret=True)
+    np.testing.assert_array_equal(entry.numpy(), np.asarray(r_entry))
+    np.testing.assert_array_equal(t_last.numpy(),
+                                  np.asarray(r_tlast).reshape(-1))
+    assert np.isfinite(entry.numpy()).any()
+
+
+def test_flat_prep_equals_hier_prep(scenes):
+    """The flat prep (plain K4, small scenes) gives the hierarchical prep's
+    values: the coarse gate is conservative."""
+    st, _ = scenes
+    o, d, inv_d, bud, lo, hi, C2 = _prep_args(st, seed=5)
+    e_h, t_h = CT._run_prep(lo, hi, o, inv_d, bud, t_max=1000.0, RB=RB,
+                            kernels=False)
+    e_f, t_f = CT._prep_plain(lo, hi, o, inv_d, bud, 1000.0, RB, 128)
+    np.testing.assert_array_equal(e_h.numpy(), e_f.numpy())
+    np.testing.assert_array_equal(t_h.numpy(), t_f.numpy())
+
+
+def _assert_contract(ref, got):
+    hit = np.asarray(ref.hit)
+    np.testing.assert_array_equal(hit, np.asarray(got.hit))
+    np.testing.assert_allclose(np.asarray(ref.t)[hit], np.asarray(got.t)[hit],
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(np.asarray(ref.obj_id),
+                                  np.asarray(got.obj_id))
+    np.testing.assert_allclose(np.asarray(ref.normal), np.asarray(got.normal),
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("engine", ["sweep", "kernel"])
+def test_sweep_matches_pallas3_and_brute(scenes, engine):
+    """The port's sweep engines against the reference's pallas3 (interpret)
+    and against both brute oracles, with budgets and escaping rays."""
+    st, sa = scenes
+    o, d, bud = _fan(512, seed=1)
+    got = trace(st, torch.from_numpy(o), torch.from_numpy(d), engine=engine,
+                t_budget=torch.from_numpy(bud), ray_block=RB)
+    ref = jx_trace(sa, jnp.asarray(o), jnp.asarray(d), engine="pallas3",
+                   t_budget=jnp.asarray(bud), ray_block=RB)
+    assert 0.2 < np.asarray(ref.hit).mean() < 0.95
+    _assert_contract(ref, got)
+    brute = trace(st, torch.from_numpy(o), torch.from_numpy(d),
+                  engine="brute", t_budget=torch.from_numpy(bud))
+    _assert_contract(brute, got)
+
+
+def test_brute_matches_reference_brute(scenes):
+    st, sa = scenes
+    o, d, _ = _fan(256, seed=2)
+    got = trace(st, torch.from_numpy(o), torch.from_numpy(d), engine="brute")
+    ref = jx_trace(sa, jnp.asarray(o), jnp.asarray(d), engine="brute")
+    _assert_contract(ref, got)
+
+
+def test_kernel_wrappers_equal_plain_bitwise_on_cpu(scenes):
+    """On CPU tensors the "kernel" engine runs the plain versions: the
+    winners, distances and fetched rows are bit-identical to "sweep"."""
+    st, _ = scenes
+    o, d, bud = _fan(384, seed=3)
+    args = (st, torch.from_numpy(o), torch.from_numpy(d),
+            torch.from_numpy(bud))
+    a = CT.sweep_winners(*args, t_min=0.0, t_max=1000.0, ray_block=RB,
+                         group=1, kernels=True)
+    b = CT.sweep_winners(*args, t_min=0.0, t_max=1000.0, ray_block=RB,
+                         group=1, kernels=False)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x.numpy(), y.numpy())
+
+
+@pytest.mark.parametrize("group", [1, 2, 4])
+def test_per_ray_budget_contract(scenes, group):
+    """trace(t_budget=b) equals the unbudgeted trace masked to misses where
+    t > b, for every supergroup size (the sweep also prunes by budget)."""
+    st, _ = scenes
+    o, d, bud = _fan(300, seed=4, el_lo=-0.1, el_hi=0.4,
+                     budgets=(5.0, 20.0, 75.0, 1000.0))
+    o_t, d_t = torch.from_numpy(o), torch.from_numpy(d)
+    full = trace(st, o_t, d_t, engine="sweep", ray_block=RB,
+                 prep_group=group)
+    got = trace(st, o_t, d_t, engine="sweep", ray_block=RB,
+                prep_group=group, t_budget=torch.from_numpy(bud))
+    exp_hit = full.hit.numpy() & (full.t.numpy() <= bud)
+    np.testing.assert_array_equal(got.hit.numpy(), exp_hit)
+    np.testing.assert_allclose(got.t.numpy()[exp_hit],
+                               full.t.numpy()[exp_hit], rtol=1e-6)
+    assert np.all(np.isinf(got.t.numpy()[~exp_hit]))
+    assert np.all(got.obj_id.numpy()[~exp_hit] == INVALID_OBJ_ID)
+
+
+def test_auto_engine_and_aux_fetch(scenes):
+    """"auto" resolves to "sweep" on CPU; with_aux returns the baked
+    per-triangle column of the winner (0 on miss)."""
+    from radarays_ros_tpu_torch.geom.scene import bake_tri_aux
+
+    st, _ = scenes
+    assert resolve_engine("auto", "cpu") == "sweep"
+    assert resolve_engine("auto", "cuda") == "kernel"
+    # aux = 1000 + the triangle's object id: the fetched value names the
+    # winner's object, which the brute oracle knows independently
+    aux = 1000.0 + torch.clamp(st.obj_ids, 0, 10**6).to(torch.float32)
+    stb = bake_tri_aux(st, aux)
+    o, d, _ = _fan(200, seed=6)
+    res = trace(stb, torch.from_numpy(o), torch.from_numpy(d), with_aux=True,
+                ray_block=RB)
+    brute = trace(st, torch.from_numpy(o), torch.from_numpy(d),
+                  engine="brute")
+    hit = brute.hit.numpy()
+    assert hit.any() and not hit.all()
+    assert np.all(res.aux.numpy()[~hit] == 0.0)
+    np.testing.assert_array_equal(res.aux.numpy()[hit],
+                                  1000.0 + brute.obj_id.numpy()[hit])
+    with pytest.raises(ValueError, match="trace engine"):
+        trace(st, torch.from_numpy(o), torch.from_numpy(d), engine="pallas3")
