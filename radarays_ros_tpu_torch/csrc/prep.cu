@@ -1,8 +1,9 @@
-// Hierarchical culling prep for the chunk sweep (kernels K3 and K2).
+// Culling prep for the chunk sweep (kernels K3, K2 and K4).
 //
 // Replaces radarays_ros_tpu/trace/pallas_trace.py:_coarse_kernel (K3,
-// launched at :615 in _coarse_bitmap) and :_prep_kernel_hier (K2, launched
-// at :673-709 in _run_prep_kernel). Both slab-test rays against boxes with
+// launched at :615 in _coarse_bitmap), :_prep_kernel_hier (K2, launched
+// at :673-709 in _run_prep_kernel) and :_prep_kernel (K4, the flat prep for
+// scenes under 256 supergroups, launched at :714-742). All slab-test rays against boxes with
 // the reference's _slab_keep (:466-485): per axis t0/t1 = (lo/hi - o) /
 // dir, t_near = max_k min(t0, t1), t_far = min_k max(t0, t1),
 // tn0 = max(t_near, 0), keep = t_far >= tn0 and t_near <= cap and cap > 0
@@ -23,11 +24,20 @@
 //    in any order (tn0 is canonicalized to +0, never -0). t_last of a lane
 //    is the max tn0 over the chunks it keeps (-inf when none). Results do
 //    not depend on the tile width.
+//  * K4 rr_prep_flat: every lane of a tile against every box, with no
+//    coarse gate. The box table (at most a few hundred boxes below the
+//    hierarchical threshold) is staged in shared memory once per block;
+//    per box a warp min and a shared atomicMin give the tile's entry, and
+//    after the loop one global atomicMin per box folds it into the block's
+//    entry row (pre-filled with +inf), exact for the same reason as K2's.
+//    The reference writes per-tile partials and takes their min in XLA
+//    (:741); the atomic min gives the same values.
 //
 // What bounds it on the card: per tested (lane, box) pair 6 sub+mul and a
-// min/max chain; boxes are read by all lanes of a block from L1/L2 (a few
-// KB), rays once. The coarse pass gates the fine pass to the few
-// supergroups a tile can reach, as on the TPU.
+// min/max chain; boxes are read by all lanes of a block from L1/L2 or
+// shared memory (a few KB), rays once. The coarse pass gates the fine pass
+// to the few supergroups a tile can reach, as on the TPU; the flat prep
+// runs only where the whole table is small.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -141,6 +151,51 @@ __global__ void prep_hier_kernel(const int* __restrict__ words, int n_words,
   t_last[r] = tl;
 }
 
+// K4: grid (n_tiles), block = rbt threads (one lane each); dynamic shared
+// memory: the (cp, 3) lo and hi tables, then cp int entries
+__global__ void prep_flat_kernel(const float* __restrict__ lo,
+                                 const float* __restrict__ hi, int cp,
+                                 const float* __restrict__ o,
+                                 const float* __restrict__ idv,
+                                 const float* __restrict__ bud, int rbt,
+                                 int tiles_per_block, float t_max,
+                                 float* __restrict__ entry,
+                                 float* __restrict__ t_last) {
+  extern __shared__ float sm[];
+  float* s_lo = sm;
+  float* s_hi = sm + 3 * cp;
+  int* s_entry = reinterpret_cast<int*>(sm + 6 * cp);
+  const int g = blockIdx.x, tid = threadIdx.x;
+  const int inf_bits = __float_as_int(CUDART_INF_F);
+  for (int i = tid; i < 3 * cp; i += blockDim.x) {
+    s_lo[i] = lo[i];
+    s_hi[i] = hi[i];
+  }
+  for (int c = tid; c < cp; c += blockDim.x) s_entry[c] = inf_bits;
+  __syncthreads();
+  const long long r = (long long)g * rbt + tid;
+  const Ray ray = load_ray(o, idv, bud, r, t_max);
+  float tl = -CUDART_INF_F;
+  for (int c = 0; c < cp; ++c) {
+    float tn0;
+    const bool keep = slab_keep(s_lo + 3 * c, s_hi + 3 * c, ray, &tn0);
+    if (keep) tl = fmaxf(tl, tn0);
+    float m = keep ? tn0 : CUDART_INF_F;
+    for (int off = 16; off > 0; off >>= 1)
+      m = fminf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    if ((tid & 31) == 0 && m < CUDART_INF_F)
+      atomicMin(&s_entry[c], __float_as_int(m));
+  }
+  __syncthreads();
+  int* entry_row = reinterpret_cast<int*>(entry) +
+                   (long long)(g / tiles_per_block) * cp;
+  for (int c = tid; c < cp; c += blockDim.x) {
+    const int v = s_entry[c];
+    if (v != inf_bits) atomicMin(&entry_row[c], v);
+  }
+  t_last[r] = tl;
+}
+
 }  // namespace
 
 // slo/shi (n_super, 3) supergroup boxes, n_super % 32 == 0; o/idv (G*rbt,
@@ -173,5 +228,24 @@ extern "C" int rr_prep_hier(const int* words, int n_words, const float* lo,
   prep_hier_kernel<<<n_tiles, rbt, 0, stream>>>(
       words, n_words, lo, hi, cp, o, idv, bud, rbt, tiles_per_block, t_max,
       entry, t_last);
+  return (int)cudaGetLastError();
+}
+
+// lo/hi (cp, 3) boxes, cp <= 1024 (the table lives in shared memory);
+// o/idv/bud per lane; G = B * I tiles, I = tiles_per_block. entry (B, cp)
+// must be pre-filled with +inf. Outputs entry (min-accumulated) and t_last
+// (G * rbt,).
+extern "C" int rr_prep_flat(const float* lo, const float* hi, int cp,
+                            const float* o, const float* idv,
+                            const float* bud, int n_tiles, int rbt,
+                            int tiles_per_block, float t_max, float* entry,
+                            float* t_last, cudaStream_t stream) {
+  if (rbt % 32 != 0 || rbt > 1024 || tiles_per_block < 1 || cp < 1 ||
+      cp > 1024)
+    return (int)cudaErrorInvalidValue;
+  if (n_tiles == 0) return cudaSuccess;
+  const size_t smem = (size_t)7 * cp * sizeof(float);
+  prep_flat_kernel<<<n_tiles, rbt, smem, stream>>>(
+      lo, hi, cp, o, idv, bud, rbt, tiles_per_block, t_max, entry, t_last);
   return (int)cudaGetLastError();
 }

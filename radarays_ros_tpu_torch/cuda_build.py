@@ -2,7 +2,8 @@
 
 The sources have a plain C interface and are compiled by nvcc into one
 shared library, loaded with ctypes — no PyTorch headers, so the build takes
-seconds. The library goes to build/radarays_torch_kernels/ under the
+seconds. Each source is compiled by its own nvcc process, all started
+together, and the objects are then linked. The library goes to build/radarays_torch_kernels/ under the
 repository root, named by a hash of the sources and flags, so an edited
 source is rebuilt and a stale library is never loaded.
 
@@ -28,7 +29,7 @@ _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("sweep.cu", "prep.cu", "bin.cu")
 _BUILD_DIR = _CSRC.parent.parent / "build" / "radarays_torch_kernels"
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-          "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
+          "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: name -> argtypes (every entry returns cudaGetLastError())
@@ -38,6 +39,7 @@ _SIGNATURES = {
     "rr_coarse_words": [_P, _P, _I, _P, _P, _P, _I, _I, _F, _P, _P],
     "rr_prep_hier": [_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _F, _P, _P,
                      _P],
+    "rr_prep_flat": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
     "rr_bin": [_P, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P],
 }
 
@@ -69,13 +71,26 @@ def build() -> Build:
     seconds, log = 0.0, ""
     if not path.exists():
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, srcs)]
+        objs = [path.with_suffix(f".{s.stem}.{os.getpid()}.o") for s in srcs]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        procs = [subprocess.Popen([nvcc, *_FLAGS, "-c", "-o", str(obj),
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(srcs, objs)]
+        outs = [p.communicate()[0] for p in procs]
+        log = "".join(outs)
+        if any(p.returncode for p in procs):
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        for obj in objs:
+            obj.unlink()
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}{link.stderr}")
         os.replace(tmp, path)
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():

@@ -12,8 +12,12 @@ and the plain version agree bit for bit. (The reference's kernel run in
 interpret mode on XLA:CPU has some tap multiply-adds contracted into FMAs;
 there the taps agree to 2 ulp, tests/test_torch_draw.py.)
 
-Forward only: the backward (the reference's XLA _bin_bwd) comes with the
-gradient-based optimisation.
+`bin_signals` is a torch.autograd.Function, differentiable w.r.t. the
+strengths like the reference's custom_vjp (pallas_draw.py:99-149); its
+backward is the reference's _bin_bwd, plain torch as the reference's is XLA:
+the adjoint correlation of the taps, then a gather at each signal's cell
+(0 outside [0, n_cells)); for max, every signal equal to its cell's output
+takes the cotangent (ties take all).
 """
 
 from __future__ import annotations
@@ -50,18 +54,69 @@ def _bin_plain(cell, s, *, n_cells: int, combine: str, weights=None,
     return img
 
 
+def _bin_bwd(cell, s, out, g, *, n_cells: int, combine: str, weights,
+             w_mode: int):
+    """d loss / d s for the cotangent g (A, n_cells): the reference's
+    _bin_bwd (pallas_draw.py:111-146), in its order of operations."""
+    if weights is not None:
+        # adjoint of img[c] += w[k] point[c - d]: d point[p] += w[k] g[p + d]
+        gc = torch.zeros_like(g)
+        for k, wk in enumerate(weights):
+            d = k - w_mode
+            if d == 0:
+                sh = g
+            elif d > 0:
+                sh = torch.nn.functional.pad(g[:, d:], (0, d))
+            else:
+                sh = torch.nn.functional.pad(g[:, :n_cells + d], (-d, 0))
+            gc = gc + wk * sh
+        g = gc
+    safe = torch.clamp(cell, 0, n_cells - 1).long()
+    ok = (cell >= 0) & (cell < n_cells)
+    g_at = torch.gather(g, 1, safe)
+    if combine == "max":
+        ok = ok & (s == torch.gather(out, 1, safe))
+    return torch.where(ok, g_at, 0.0)
+
+
+class _Bin(torch.autograd.Function):
+    """K5: the kernel (CUDA tensors) or the plain version (CPU tensors)
+    forward, the reference's backward; cells get no gradient."""
+
+    @staticmethod
+    def forward(ctx, cell, s, n_cells, combine, weights, w_mode):
+        run = _bin_plain if s.device.type == "cpu" else _bin_launch
+        out = run(cell, s, n_cells=n_cells, combine=combine,
+                  weights=weights, w_mode=w_mode)
+        ctx.meta = dict(n_cells=n_cells, combine=combine, weights=weights,
+                        w_mode=w_mode)
+        ctx.save_for_backward(cell, s, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        cell, s, out = ctx.saved_tensors
+        return (None, _bin_bwd(cell, s, out, g, **ctx.meta), None, None,
+                None, None)
+
+
 def bin_signals(cell, s, *, n_cells: int, combine: str = "sum", weights=None,
                 w_mode: int = 0):
-    """K5 wrapper: plain version on CPU tensors, the CUDA kernel rr_bin on
-    CUDA tensors. cell (A, N) int32, s (A, N) float32; weights (static
-    float32 taps, combine "sum" only) and w_mode fuse the denoise."""
+    """K5 wrapper, differentiable w.r.t. s: plain version on CPU tensors,
+    the CUDA kernel rr_bin on CUDA tensors. cell (A, N) int32, s (A, N)
+    float32; weights (static float32 taps, combine "sum" only) and w_mode
+    fuse the denoise."""
     if combine not in ("sum", "max"):
         raise ValueError(f"unknown combine {combine!r}")
     if weights is not None and combine != "sum":
         raise ValueError("fused denoise taps require combine='sum'")
-    if s.device.type == "cpu":
-        return _bin_plain(cell, s, n_cells=n_cells, combine=combine,
-                          weights=weights, w_mode=w_mode)
+    w = None if weights is None else tuple(
+        float(x) for x in np.asarray(weights, np.float32))
+    return _Bin.apply(cell, s, n_cells, combine, w, int(w_mode))
+
+
+def _bin_launch(cell, s, *, n_cells: int, combine: str, weights, w_mode: int):
+    """Launch rr_bin on CUDA tensors (the forward of bin_signals)."""
     from radarays_ros_tpu_torch import cuda_build
 
     cuda_build.check_tensors("bin_signals", cell, s,
@@ -77,7 +132,7 @@ def bin_signals(cell, s, *, n_cells: int, combine: str = "sum", weights=None,
     cuda_build.check(lib.rr_bin(
         cell.data_ptr(), s.data_ptr(), A, N, n_cells,
         None if w is None else w.data_ptr(), 0 if w is None else w.numel(),
-        int(w_mode), int(combine == "max"), out.data_ptr(),
+        w_mode, int(combine == "max"), out.data_ptr(),
         cuda_build.stream_ptr(s)), "rr_bin")
     bin_signals.launches += 1
     return out

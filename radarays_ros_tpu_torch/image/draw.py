@@ -10,7 +10,8 @@
   * ambient noise and per-column normalization follow RadarCPU.cpp:453-542.
 
 Binning runs through the K5 wrapper (image/cuda_draw.py), or its plain
-version directly with method="plain".
+version directly with method="plain"; both are differentiable w.r.t. the
+strengths.
 """
 
 from __future__ import annotations
@@ -50,7 +51,9 @@ def draw_signals(times, strengths, valid, *, n_cells: int, resolution,
                      n_cells=n_cells, combine="sum",
                      weights=np.asarray(denoise_weights, np.float32),
                      w_mode=denoise_mode)
-        img[:, 0] = 0.0   # the reference never writes range cell 0 here
+        # the reference never writes range cell 0 here; out of place, so
+        # autograd never sees an in-place edit of the binning's output
+        img = torch.nn.functional.pad(img[:, 1:], (1, 0))
     else:
         img = binner(cell, torch.where(ok, strengths, -torch.inf).contiguous(),
                      n_cells=n_cells, combine="max")

@@ -3,20 +3,26 @@ radarays_ros_tpu/sim/pipeline.py).
 
 One frame: cone sampling, the pose and azimuth rotations, `n_reflections`
 bounces (trace under the per-ray image-range budget, material from the
-per-triangle aux column, Fresnel reflection, back-reflection shading, the
-path-return signal), binning with the fused denoise, the energy scale,
-ambient noise, per-column u8 normalization and the scroll.
+per-triangle aux column or the object map, Fresnel split into a reflection
+and a refraction child, back-reflection shading, the path-return and the
+multipath air-return signals), binning with the fused denoise, the energy
+scale, ambient noise, per-column u8 normalization and the scroll.
 
-Only the opaque fast path of `collect_signals` is ported (every non-air
-material has velocity 0, so the refraction branch is provably dead, the
-reference's lax.scan path at :263-276); the refraction tree and multipath
-returns raise NotImplementedError.
+With `opaque_materials` (every non-air material has velocity 0, so the
+refraction branch is provably dead) the wave tensor keeps its sample count
+every pass; otherwise each pass doubles it, [reflection, refraction] along
+the sample axis (the reference's refraction tree, sim/pipeline.py:199-209,
+277-289).
 
 Random inputs: torch's generators do not reproduce JAX's streams, so the
-frame entry points take the cone directions `local_dirs`, the Perlin row
-offsets `random_begin` and the uniform noise field `uniform` as optional
-explicit inputs (the scope rule of tests/numpy_oracle.py); absent ones are
-drawn from `generator`.
+frame entry points take the cone draws `cone_draws` (or the directions
+`local_dirs`), the Perlin row offsets `random_begin` and the uniform noise
+field `uniform` as optional explicit inputs (the scope rule of
+tests/numpy_oracle.py); absent ones are drawn from `generator`.
+
+Differentiable w.r.t. the material table and the beam width (through the
+cone directions built from the draws, the Moller-Trumbore refinement of
+each hit, shading and binning), as the reference's frame is.
 """
 
 from __future__ import annotations
@@ -32,8 +38,9 @@ from radarays_ros_tpu_torch.sim.config import RadarModelConfig, RadarParams
 from radarays_ros_tpu_torch.trace.api import resolve_engine, trace
 from radarays_ros_tpu_torch.utils.transforms import (azimuth_angles,
                                                      pose_matrix, rotz)
-from radarays_ros_tpu_torch.wave.cone import sample_cone_local
-from radarays_ros_tpu_torch.wave.fresnel import (back_reflection_shader,
+from radarays_ros_tpu_torch.wave.cone import cone_local, sample_cone_draws
+from radarays_ros_tpu_torch.wave.fresnel import (_clamped_acos,
+                                                 back_reflection_shader,
                                                  cook_torrance_shader,
                                                  fresnel_split,
                                                  get_incidence_angle)
@@ -88,13 +95,19 @@ def trace_budget(cfg: RadarModelConfig, waves: Waves) -> torch.Tensor:
     weights, _ = cfg.denoiser()
     slack = 0 if weights is None else len(weights)
     t_lim = (cfg.n_cells + slack) * cfg.resolution / 0.3
+    if cfg.record_multi_path:
+        # the air return travels hit -> sensor directly, which can be
+        # arbitrarily short: only time * 1 (not * 2) bounds its signal
+        t_lim = 2.0 * t_lim
     return torch.clamp_min(t_lim - waves.time, 0.0) * waves.velocity
 
 
 def _bounce(cfg: RadarModelConfig, params: RadarParams, scene: SceneTensors,
-            waves: Waves, pass_id: int):
-    """One reflection pass over an (N, A, S) wave batch: returns the
-    reflected waves and the path-return signal (time, strength, valid)."""
+            waves: Waves, sensor_pos, pass_id: int):
+    """One pass over an (N, A, S) wave batch (sensor_pos (N, A, 3)):
+    returns the next waves ((N, A, S) opaque, else (N, A, 2S) as
+    [reflection, refraction]) and the pass's signals, a list of (time,
+    strength, valid): the path return, then the multipath air return."""
     res = _trace_ray_major(cfg, scene, waves, trace_budget(cfg, waves))
 
     alive = waves.valid & res.hit
@@ -114,58 +127,104 @@ def _bounce(cfg: RadarModelConfig, params: RadarParams, scene: SceneTensors,
     fres = fresnel_split(res.normal, waves.dir, incidence.energy,
                          incidence.polarization, incidence.velocity, v2)
 
-    refl_valid = alive & (fres.reflection_energy > cfg.wave_energy_threshold)
+    thresh = cfg.wave_energy_threshold
+    refl_valid = alive & (fres.reflection_energy > thresh)
     reflection = incidence._replace(
         dir=fres.reflection_dir, energy=fres.reflection_energy,
         valid=refl_valid).move(cfg.skip_dist)
+    if cfg.opaque_materials:
+        next_waves = reflection
+    else:
+        # the refraction child enters the hit's medium (sim/pipeline.py
+        # :199-209 of the reference)
+        refr_dir_ok = torch.sum(fres.refraction_dir * fres.refraction_dir,
+                                dim=-1) > 0.25
+        refr_valid = alive & (fres.refraction_energy > thresh) & refr_dir_ok
+        refraction = incidence._replace(
+            dir=fres.refraction_dir, energy=fres.refraction_energy,
+            velocity=torch.where(refr_valid, v2, incidence.velocity),
+            material_id=torch.where(refr_valid, refr_mat,
+                                    incidence.material_id).to(torch.int32),
+            valid=refr_valid).move(cfg.skip_dist)
+        next_waves = Waves(*(torch.cat([a, b], dim=2)
+                             for a, b in zip(reflection, refraction)))
 
     inc_angle = get_incidence_angle(res.normal, waves.dir)
     ret_energy = _shade(cfg, params, refr_mat, inc_angle,
                         fres.reflection_energy)
-    path_valid = refl_valid & in_air
+    sig_gate = refl_valid & in_air
+    path_valid = sig_gate
     if not (pass_id == 0 or cfg.record_multi_reflection):
         path_valid = torch.zeros_like(path_valid)
-    return reflection, (incidence.time * 2.0, ret_energy, path_valid)
+    signals = [(incidence.time * 2.0, ret_energy, path_valid)]
+    # the multipath air return: the hit reflects straight through air back
+    # to the sensor (sim/pipeline.py:227-241). The opaque branch emits it
+    # on every pass (all invalid on pass 0), as the reference's lax.scan
+    # body does, so that its signal layout is the reference's.
+    if cfg.record_multi_path and (cfg.opaque_materials or pass_id > 0):
+        to_sensor = incidence.orig - sensor_pos[:, :, None, :]
+        dist = torch.linalg.norm(to_sensor, dim=-1)
+        dir_s2h = to_sensor / torch.clamp_min(dist, 1e-12)[..., None]
+        time_to_sensor = dist / reflection.velocity
+        view_scalar = torch.sum(waves.dir * dir_s2h, dim=-1)
+        angle_air = _clamped_acos(
+            torch.sum(-fres.reflection_dir * dir_s2h, dim=-1))
+        air_energy = _shade(cfg, params, refr_mat, angle_air,
+                            fres.reflection_energy)
+        air_valid = sig_gate & (view_scalar > cfg.multipath_threshold)
+        if pass_id == 0:
+            air_valid = torch.zeros_like(air_valid)
+        signals.append((incidence.time + time_to_sensor, air_energy,
+                        air_valid))
+    return next_waves, signals
 
 
 def collect_signals(scene: SceneTensors, params: RadarParams,
-                    cfg: RadarModelConfig, waves: Waves):
+                    cfg: RadarModelConfig, waves: Waves, sensor_pos):
     """All bounce passes of an (N, A, S) batch; returns (times, strengths,
-    valid) shaped (N, A, P*S), pass-major within a row (the reference's
-    signal order, sim/pipeline.py:270-276, which fixes K5's sum order)."""
-    if not cfg.opaque_materials:
-        raise NotImplementedError(
-            "only the opaque fast path is ported: the refraction tree "
-            "(sim/pipeline.py:277-289 of the reference) is not")
-    if cfg.record_multi_path:
-        raise NotImplementedError("multipath returns are not ported yet")
+    valid) shaped (N, A, n_signals) in the reference's signal order, which
+    fixes K5's f32 sum order: opaque — kind-major (every path return, then
+    every air return), pass-major within a kind, as the reference's
+    lax.scan flatten (sim/pipeline.py:270-276); otherwise pass by pass,
+    path then air within a pass (:277-289)."""
     sigs = []
     for pass_id in range(cfg.n_reflections):
-        waves, sig = _bounce(cfg, params, scene, waves, pass_id)
+        waves, sig = _bounce(cfg, params, scene, waves, sensor_pos, pass_id)
         sigs.append(sig)
-    N, A, S = waves.batch_shape
-
-    def flat(i):    # P x (N, A, S) -> (N, A, P*S)
-        return torch.stack([s[i] for s in sigs], dim=2).reshape(N, A, -1)
-
-    return flat(0), flat(1), flat(2)
+    N, A = waves.batch_shape[:2]
+    if cfg.opaque_materials:
+        flat = [p[k] for k in range(len(sigs[0])) for p in sigs]
+    else:
+        flat = [sig for p in sigs for sig in p]
+    return tuple(torch.cat([f[i].reshape(N, A, -1) for f in flat], dim=2)
+                 for i in range(3))
 
 
 def start_waves(params: RadarParams, cfg: RadarModelConfig, poses, *,
                 local_dirs: Optional[torch.Tensor] = None,
+                cone_draws=None,
                 generator: Optional[torch.Generator] = None,
-                device="cpu") -> Waves:
-    """The transmitted (N, A, S) wave batch: poses (N, 7) or (N, A, 7);
-    local_dirs (S, 3) or (N, S, 3), drawn from `generator` when absent."""
+                device="cpu"):
+    """The transmitted (N, A, S) wave batch and the sensor positions
+    (N, A, 3): poses (N, 7) or (N, A, 7). The beam-frame directions are
+    `local_dirs` (S, 3) or (N, S, 3); else they are built from the cone
+    draws `cone_draws` = (theta, radial), each (S,) or (N, S), with the
+    current beam width (differentiably); else drawn from `generator`."""
     A, S = cfg.n_angles, cfg.n_samples
     poses = torch.as_tensor(poses, dtype=torch.float32, device=device)
     N = poses.shape[0]
     if poses.dim() == 2:
         poses = poses[:, None, :].expand(N, A, 7)
     if local_dirs is None:
-        local_dirs = torch.stack([sample_cone_local(
-            generator, params.beam_width, S, cfg.beam_sample_dist,
-            cfg.beam_sample_dist_normal_p_in_cone) for _ in range(N)])
+        if cone_draws is None:
+            draws = [sample_cone_draws(generator, S, cfg.beam_sample_dist)
+                     for _ in range(N)]
+            cone_draws = tuple(torch.stack(d) for d in zip(*draws))
+        theta, radial = (torch.as_tensor(x, dtype=torch.float32,
+                                         device=device) for x in cone_draws)
+        local_dirs = cone_local(theta, radial, params.beam_width,
+                                cfg.beam_sample_dist,
+                                cfg.beam_sample_dist_normal_p_in_cone)
     local_dirs = torch.as_tensor(local_dirs, dtype=torch.float32,
                                  device=device).expand(N, S, 3)
     # beam frame -> map frame: R_am = R_sm @ Rz(theta_a), in true f32
@@ -174,14 +233,16 @@ def start_waves(params: RadarParams, cfg: RadarModelConfig, poses, *,
     R_am = torch.matmul(R_sm, rotz(azimuth_angles(A, device)))
     dirs0 = torch.einsum("naij,nsj->nasi", R_am, local_dirs)
     sensor_pos = t_sm + torch.tensor([0.0, 0.0, cfg.z_offset], device=device)
-    return broadcast_waves(
+    waves = broadcast_waves(
         sensor_pos[:, :, None, :], dirs0,
         make_start_wave_attrs(material_id=cfg.material_id_air), (N, A, S))
+    return waves, sensor_pos
 
 
 def simulate_frames(scene: SceneTensors, params: RadarParams,
                     cfg: RadarModelConfig, poses, *,
                     local_dirs: Optional[torch.Tensor] = None,
+                    cone_draws=None,
                     random_begin: Optional[torch.Tensor] = None,
                     uniform: Optional[torch.Tensor] = None,
                     generator: Optional[torch.Generator] = None
@@ -189,17 +250,20 @@ def simulate_frames(scene: SceneTensors, params: RadarParams,
     """A batch of N frames on the scene's device.
 
     poses: (N, 7) one pose per frame or (N, n_angles, 7) per-azimuth poses.
-    local_dirs: (S, 3) or (N, S, 3) beam-frame cone directions;
+    local_dirs: (S, 3) or (N, S, 3) beam-frame cone directions, or
+    cone_draws: (theta, radial) each (S,) or (N, S) (see start_waves);
     random_begin: (N, A) Perlin row offsets; uniform: (N, A, n_cells)
     field — each drawn from `generator` when absent (and needed).
     Returns FrameResult with a leading N axis on every field.
     """
     dev = scene.device
     A, n_cells = cfg.n_angles, cfg.n_cells
-    waves = start_waves(params, cfg, poses, local_dirs=local_dirs,
-                        generator=generator, device=dev)
+    waves, sensor_pos = start_waves(params, cfg, poses, local_dirs=local_dirs,
+                                    cone_draws=cone_draws,
+                                    generator=generator, device=dev)
     N = waves.batch_shape[0]
-    times, strengths, valid = collect_signals(scene, params, cfg, waves)
+    times, strengths, valid = collect_signals(scene, params, cfg, waves,
+                                              sensor_pos)
     weights, mode = cfg.denoiser()
     img, max_val = draw_signals(
         times.reshape(N * A, -1), strengths.reshape(N * A, -1),
@@ -244,17 +308,20 @@ def simulate_frames(scene: SceneTensors, params: RadarParams,
 def simulate_frame(scene: SceneTensors, params: RadarParams,
                    cfg: RadarModelConfig, pose, *,
                    local_dirs: Optional[torch.Tensor] = None,
+                   cone_draws=None,
                    random_begin: Optional[torch.Tensor] = None,
                    uniform: Optional[torch.Tensor] = None,
                    generator: Optional[torch.Generator] = None
                    ) -> FrameResult:
     """One frame at a (7,) pose or (n_angles, 7) per-azimuth poses; the
-    explicit random inputs are unbatched ((S, 3), (A,), (A, n_cells))."""
+    explicit random inputs are unbatched ((S, 3), ((S,), (S,)), (A,),
+    (A, n_cells))."""
     def one(x):
         return None if x is None else torch.as_tensor(x)[None]
 
     res = simulate_frames(scene, params, cfg, one(pose),
-                          local_dirs=local_dirs, random_begin=one(random_begin),
+                          local_dirs=local_dirs, cone_draws=cone_draws,
+                          random_begin=one(random_begin),
                           uniform=one(uniform), generator=generator)
     return FrameResult(*(x[0] for x in res))
 

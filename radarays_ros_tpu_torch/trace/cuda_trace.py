@@ -9,15 +9,19 @@ Per block of `ray_block` rays:
      (the largest entry among the chunks it reaches). Scenes with at least
      256 supergroups take the hierarchical prep: a coarse per-(ray tile,
      32-chunk group) bitmap (K3, `coarse_words`) gates the per-chunk tests
-     (K2, `prep_hier`). Smaller scenes take the flat prep of the reference
-     (its kernel K4, `_prep_kernel`), which is not ported yet: the plain
-     version runs on CPU tensors and the kernel path raises.
+     (K2, `prep_hier`). Smaller scenes take the flat prep (K4,
+     `prep_flat`): every lane against every box.
   2. rank the block's chunks by entry (stable sort); nvisit = the number of
      finite entries.
   3. sweep (K1, `sweep`) — visit chunks front to back, keep each lane's
      nearest hit, stop once the next entry exceeds max_lanes min(best_t,
      t_last), fetch the winner records.
   4. the winner's distance is refined by Moller-Trumbore (trace/planes.py).
+
+Gradients: the winner search is discrete, so steps 1-3 run on detached
+rays and budgets; d(t)/d(origin, direction) flows only through the
+Moller-Trumbore refinement of step 4 (the reference's stop_gradient at
+pallas_trace.py:1131-1142, 1187-1189).
 
 Every kernel wrapper runs the plain version for CPU tensors and launches
 the kernel for CUDA tensors (or raises); it counts its launches in
@@ -118,7 +122,7 @@ def coarse_words(slo, shi, o, idv, bud, t_max: float, rbt: int):
 coarse_words.launches = 0
 
 
-# ------------------------------------------------------ K2 (+K4): prep
+# ------------------------------------------------------ K2 and K4: prep
 
 def _prep_plain(lo, hi, o, idv, bud, t_max: float, RB: int, rbt: int,
                 words=None):
@@ -189,6 +193,37 @@ def prep_hier(words, lo, hi, o, idv, bud, t_max: float, RB: int, rbt: int):
 prep_hier.launches = 0
 
 
+def prep_flat(lo, hi, o, idv, bud, t_max: float, RB: int, rbt: int):
+    """K4 wrapper: the plain flat prep on CPU tensors, the CUDA kernel
+    rr_prep_flat on CUDA tensors."""
+    if o.device.type == "cpu":
+        return _prep_plain(lo, hi, o, idv, bud, t_max, RB, rbt)
+    from radarays_ros_tpu_torch import cuda_build
+
+    cuda_build.check_tensors("prep_flat", lo, hi, o, idv, bud,
+                             dtypes=(torch.float32,) * 5)
+    Rp = o.shape[0]
+    Cp = lo.shape[0]
+    if Rp % RB or RB % rbt or not 1 <= Cp <= 1024 \
+            or hi.shape != lo.shape or bud.shape != (Rp,):
+        raise ValueError(f"prep_flat: inconsistent shapes (rays {Rp}, block "
+                         f"{RB}, tile {rbt}, boxes {Cp}, at most 1024)")
+    entry = torch.full((Rp // RB, Cp), torch.inf, dtype=torch.float32,
+                       device=o.device)
+    t_last = torch.empty(Rp, dtype=torch.float32, device=o.device)
+    lib = cuda_build.build().lib
+    cuda_build.check(lib.rr_prep_flat(
+        lo.data_ptr(), hi.data_ptr(), Cp, o.data_ptr(), idv.data_ptr(),
+        bud.data_ptr(), Rp // rbt, rbt, RB // rbt, float(t_max),
+        entry.data_ptr(), t_last.data_ptr(), cuda_build.stream_ptr(o)),
+        "rr_prep_flat")
+    prep_flat.launches += 1
+    return entry, t_last
+
+
+prep_flat.launches = 0
+
+
 def _coarse_boxes(lo, hi):
     """Boxes of the coarse groups (32 consecutive chunks each), padded with
     far boxes to a multiple of 32 groups (pallas_trace.py:605-612)."""
@@ -209,12 +244,8 @@ def _run_prep(lo, hi, o, idv, bud, *, t_max: float, RB: int, kernels: bool):
     want = 1024 if hier else 256
     rbt = next(r for r in (want, 512, 256, 128) if RB % r == 0)
     if not hier:
-        if kernels and o.device.type == "cuda":
-            raise NotImplementedError(
-                f"the flat culling prep (the reference's K4 _prep_kernel, "
-                f"for scenes under {8 * _SG} supergroups; this one has {Cp}) "
-                "has no CUDA kernel yet")
-        return _prep_plain(lo, hi, o, idv, bud, t_max, RB, rbt)
+        run = prep_flat if kernels else _prep_plain
+        return run(lo, hi, o, idv, bud, t_max, RB, rbt)
     slo, shi = _coarse_boxes(lo, hi)
     if kernels:
         words = coarse_words(slo, shi, o, idv, bud, t_max, rbt)
@@ -413,9 +444,9 @@ def trace_sweep(scene, origs, dirs, t_min: float = 0.0, t_max: float = 1000.0,
                          f"{ray_block}")
     group = prep_group or _auto_prep_group(scene.n_chunks)
     budget = (torch.full(origs.shape[:1], t_max, device=origs.device)
-              if t_budget is None else t_budget.to(torch.float32))
+              if t_budget is None else t_budget.detach().to(torch.float32))
     best_t, _, rows = sweep_winners(
-        scene, origs.to(torch.float32), dirs.to(torch.float32), budget,
-        t_min=t_min, t_max=t_max, ray_block=ray_block, group=group,
-        kernels=kernels)
+        scene, origs.detach().to(torch.float32),
+        dirs.detach().to(torch.float32), budget, t_min=t_min, t_max=t_max,
+        ray_block=ray_block, group=group, kernels=kernels)
     return _finalize_packed(origs, dirs, best_t, rows, with_aux=with_aux)

@@ -2,8 +2,10 @@
 radarays_ros_tpu/wave/cone.py, after radar_algorithms.cpp:248-385).
 
 Randomness comes from a `torch.Generator`; its stream differs from JAX's, so
-the tests compare distributions by their moments, and the frame entry points
-take the cone directions as an optional explicit input.
+the tests compare distributions by their moments. The draws (theta, radial)
+are kept apart from the beam width: `cone_local` builds the directions from
+explicit draws, differentiably in the width, and the frame entry points take
+either the draws or the directions as optional explicit inputs.
 
     0 (D1): r = u * R                u ~ U(0,1)
     1 (D2): r = sqrt(u) * R
@@ -36,32 +38,76 @@ def rotate_pitch_yaw(alpha, beta, v):
     return torch.stack(torch.broadcast_tensors(x2, y2, z1), dim=-1)
 
 
-def _sample_radii(gen, n_samples: int, radius, sample_dist: int, p_in_cone,
-                  device):
-    z = math.sqrt(2.0) * erfinvf(torch.tensor(p_in_cone)).to(device)
+def sample_cone_draws(gen: torch.Generator, n_samples: int,
+                      sample_dist: int):
+    """The random draws of n_samples cone rays, on the generator's device:
+    theta ~ U(-pi, pi) (S,) and the radial draw (S,) before it is scaled
+    to a radius — u ~ U(0, 1) for D1/D2, g ~ N(0, 1) for D3/D4."""
+    if sample_dist not in (0, 1, 2, 3):
+        raise ValueError(f"unknown sample_dist {sample_dist} (expected 0..3)")
+    device = gen.device
+    theta = torch.rand(n_samples, generator=gen, device=device) \
+        * (2.0 * math.pi) - math.pi
+    draw = torch.rand if sample_dist < 2 else torch.randn
+    return theta, draw(n_samples, generator=gen, device=device)
+
+
+def _radii(radial, radius, sample_dist: int, p_in_cone):
+    z = math.sqrt(2.0) * erfinvf(torch.tensor(p_in_cone)).to(radial.device)
     if sample_dist == 0:
-        u = torch.rand(n_samples, generator=gen, device=device)
-        return u * radius
+        return radial * radius
     if sample_dist == 1:
-        u = torch.rand(n_samples, generator=gen, device=device)
-        return torch.sqrt(u) * radius
+        return torch.sqrt(radial) * radius
     if sample_dist == 2:
-        g = torch.randn(n_samples, generator=gen, device=device)
-        return (g / z) * radius
+        return (radial / z) * radius
     if sample_dist == 3:
-        g = torch.randn(n_samples, generator=gen, device=device)
-        return torch.sqrt(torch.abs(g) / z) * radius
+        return torch.sqrt(torch.abs(radial) / z) * radius
     raise ValueError(f"unknown sample_dist {sample_dist} (expected 0..3)")
+
+
+def cone_offsets(theta, radial, width, sample_dist: int, p_in_cone):
+    """(alpha, beta) pitch/yaw offsets from explicit draws (theta, radial)
+    of any shape: a differentiable function of `width` [rad] (the
+    reference's sample_cone_offsets after its draws, wave/cone.py:66-74)."""
+    radius = torch.as_tensor(width, dtype=torch.float32,
+                             device=theta.device) / 2.0
+    r = _radii(radial, radius, sample_dist, p_in_cone)
+    return r * torch.cos(theta), r * torch.sin(theta)
+
+
+def cone_dirs(theta, radial, mean_dir, width, sample_dist: int, p_in_cone):
+    """(..., 3) directions in a cone around mean_dir from explicit draws."""
+    alpha, beta = cone_offsets(theta, radial, width, sample_dist, p_in_cone)
+    mean = torch.as_tensor(mean_dir, dtype=torch.float32, device=theta.device)
+    return rotate_pitch_yaw(alpha, beta, mean)
+
+
+def cone_local(theta, radial, width, sample_dist: int, p_in_cone):
+    """(..., 3) beam-frame directions around +x from explicit draws."""
+    return cone_dirs(theta, radial, [1.0, 0.0, 0.0], width, sample_dist,
+                     p_in_cone)
+
+
+def sample_cone_offsets(gen: torch.Generator, width, n_samples: int,
+                        sample_dist: int, p_in_cone):
+    """Draw (alpha, beta) pitch/yaw offsets for n_samples cone rays."""
+    return cone_offsets(*sample_cone_draws(gen, n_samples, sample_dist),
+                        width, sample_dist, p_in_cone)
 
 
 def sample_cone_local(gen: torch.Generator, width, n_samples: int,
                       sample_dist: int, p_in_cone) -> torch.Tensor:
     """(n_samples, 3) beam-frame directions around +x (radar_algorithms.cpp
     :248-294), drawn from `gen` on the generator's device."""
-    device = gen.device
-    theta = torch.rand(n_samples, generator=gen, device=device) \
-        * (2.0 * math.pi) - math.pi
-    radius = torch.as_tensor(width, dtype=torch.float32, device=device) / 2.0
-    r = _sample_radii(gen, n_samples, radius, sample_dist, p_in_cone, device)
-    mean = torch.tensor([1.0, 0.0, 0.0], device=device)
-    return rotate_pitch_yaw(r * torch.cos(theta), r * torch.sin(theta), mean)
+    return cone_local(*sample_cone_draws(gen, n_samples, sample_dist),
+                      width, sample_dist, p_in_cone)
+
+
+def sample_cone_mean(gen: torch.Generator, mean_dir, width, n_samples: int,
+                     sample_dist: int, p_in_cone) -> torch.Tensor:
+    """mean_dir followed by n_samples - 1 random cone directions around it
+    (the debug beam's sampler, radar_algorithms.cpp:339-385)."""
+    mean = torch.as_tensor(mean_dir, dtype=torch.float32, device=gen.device)
+    rest = cone_dirs(*sample_cone_draws(gen, n_samples - 1, sample_dist),
+                     mean, width, sample_dist, p_in_cone)
+    return torch.cat([mean[None, :], rest], dim=0)

@@ -8,6 +8,14 @@ d - 2 (n.d) n; Snell with the TIR limit asin(n2/n1) and the normal flipped
 toward the incoming side; rs/rp special cases at normal (i + r < 1e-4) and
 grazing (i + r > pi - 1e-4) incidence; Reff = pol Rs + (1 - pol) Rp,
 Teff = 1 - Reff. acos/sqrt inputs and the shader's cosine are clamped.
+
+Gradients: where an acos input reaches +-1 or a sqrt input reaches 0, the
+derivative is infinite; a lane whose cotangent is 0 (a dead wave, an
+unselected branch) would turn 0 * inf into NaN and poison every parameter
+gradient. There the input is detached, so no gradient flows through that
+point and the values are unchanged. (The reference's gradient is NaN in
+those cases, and also under total internal reflection, ROADMAP.md
+section 3.)
 """
 
 from __future__ import annotations
@@ -21,7 +29,15 @@ _EPS_ANGLE = 1e-4  # special-case window of radar_algorithms.h:111
 
 
 def _clamped_acos(x):
-    return torch.arccos(torch.clamp(x, -1.0, 1.0))
+    """arccos of x clamped to [-1, 1], with no gradient at +-1."""
+    c = torch.clamp(x, -1.0, 1.0)
+    return torch.arccos(torch.where(c.abs() < 1.0, c, c.detach()))
+
+
+def _clamped_sqrt(x):
+    """sqrt of x clamped to >= 0, with no gradient at 0."""
+    c = torch.clamp_min(x, 0.0)
+    return torch.sqrt(torch.where(c > 0.0, c, c.detach()))
 
 
 def get_incidence_angle(surface_normal, incidence_dir):
@@ -66,7 +82,7 @@ def fresnel_split(surface_normal, incidence_dir, energy, polarization, v1, v2
     n12 = n1 / safe_n2
     c = torch.cos(incidence_angle)
     radicand = 1.0 - n12 * n12 * (1.0 - c * c)
-    root = torch.sqrt(torch.clamp_min(radicand, 0.0))
+    root = _clamped_sqrt(radicand)
     refr_candidate = d * n12[..., None] + n_oriented * (n12 * c - root)[..., None]
 
     transmits = (n1 > 0.0) & (incidence_angle <= angle_limit) & (n2 > 0.0)

@@ -7,6 +7,8 @@ A CUDA kernel has no interpret mode, so these tests need an NVIDIA GPU
 
 Every kernel must agree with its plain version bit for bit: both round
 every product and sum separately, in the same order (-fmad=false build).
+The K5 Function's backward is plain torch on both devices; gradients are
+held to the plain version's autograd gradient.
 """
 
 import numpy as np
@@ -103,11 +105,127 @@ def test_bin_kernel_equals_plain(dev, combine):
     assert torch.equal(got, want)
 
 
-def test_small_scene_kernel_path_raises_for_flat_prep(dev):
+@pytest.fixture(scope="module")
+def small_scene(dev):
     parts, names = make_urban_scene(n_buildings=20, extent=40.0, seed=1)
     st = Scene.compose(parts, names, chunk_size=64).to_device(dev)
-    o, d, _ = _fan(256, dev)
-    with pytest.raises(NotImplementedError, match="K4"):
-        trace(st, o, d, engine="kernel")
-    res = trace(st, o, d, engine="sweep")     # the plain path still runs
-    assert res.hit.any()
+    assert st.n_chunks < 8 * CT._SG                # flat prep
+    return st
+
+
+@pytest.mark.parametrize("chunk_size,rb", [(64, 2048), (16, 768),
+                                           (256, 128)])
+def test_flat_prep_kernel_equals_plain(dev, chunk_size, rb):
+    """K4 against its plain version bit for bit, for box counts that are
+    not a multiple of 32 and for the 8 padded boxes of a tiny scene."""
+    parts, names = make_urban_scene(n_buildings=20, extent=40.0, seed=1)
+    st = Scene.compose(parts, names, chunk_size=chunk_size).to_device(dev)
+    o, d, bud = _fan(4096 + 77, dev, seed=3)
+    o, d, inv_d, bud, lo, hi, C2 = CT._prep_inputs(st, o, d, bud,
+                                                    ray_block=rb, group=1)
+    assert lo.shape[0] < 8 * CT._SG
+    rbt = next(r for r in (256, 512, 128) if rb % r == 0)
+    n0 = CT.prep_flat.launches
+    e_k, t_k = CT.prep_flat(lo, hi, o, inv_d, bud, 1000.0, rb, rbt)
+    e_p, t_p = CT._prep_plain(lo, hi, o, inv_d, bud, 1000.0, rb, rbt)
+    torch.cuda.synchronize()
+    assert CT.prep_flat.launches == n0 + 1
+    assert torch.equal(e_k, e_p) and torch.equal(t_k, t_p)
+    assert torch.isfinite(e_k).any() and torch.isinf(t_k).any()
+
+
+def test_small_scene_kernel_path_runs_flat_prep(small_scene, dev):
+    o, d, bud = _fan(2048, dev, seed=2)
+    n0 = CT.prep_flat.launches
+    got = trace(small_scene, o, d, engine="kernel", t_budget=bud)
+    assert CT.prep_flat.launches > n0
+    ref = trace(small_scene, o, d, engine="sweep", t_budget=bud)
+    brute = trace(small_scene, o, d, engine="brute", t_budget=bud)
+    assert got.hit.any()
+    for want in (ref, brute):
+        assert torch.equal(want.hit, got.hit)
+        assert torch.equal(want.obj_id, got.obj_id)
+        torch.testing.assert_close(got.t[got.hit], want.t[got.hit],
+                                   rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("combine", ["sum", "taps", "max"])
+def test_bin_function_backward_on_card(dev, combine):
+    """Gradients through the kernel's Function equal the plain version's
+    autograd gradients (exact for sum and max; within 1e-6 of the largest
+    on the tap path, whose adjoint autograd sums in another order) and the
+    CPU Function's."""
+    rng = np.random.default_rng(5)
+    A, N, n_cells = 400, 200, 3424
+    cell = rng.integers(-5, n_cells + 5, (A, N)).astype(np.int32)
+    s = rng.exponential(1.0, (A, N)).astype(np.float32)
+    g = rng.normal(size=(A, n_cells)).astype(np.float32)
+    w, mode = build_denoiser(1, 35, 0.35) if combine == "taps" else (None, 0)
+    kw = dict(n_cells=n_cells, combine="max" if combine == "max" else "sum",
+              weights=w, w_mode=mode)
+
+    def grad(fn, device):
+        st = torch.from_numpy(s).to(device).requires_grad_(True)
+        fn(torch.from_numpy(cell).to(device), st, **kw).backward(
+            torch.from_numpy(g).to(device))
+        return st.grad
+
+    n0 = bin_signals.launches
+    got = grad(bin_signals, dev)
+    torch.cuda.synchronize()
+    assert bin_signals.launches == n0 + 1
+    plain = grad(_bin_plain, dev)
+    cpu = grad(bin_signals, "cpu")
+    atol = 1e-6 * float(plain.abs().max()) if combine == "taps" else 0.0
+    torch.testing.assert_close(got, plain, rtol=0, atol=atol)
+    torch.testing.assert_close(got.cpu(), cpu, rtol=0, atol=atol)
+    assert got.abs().max() > 0
+
+
+def test_frame_gradient_through_kernels_equals_plain(small_scene, dev):
+    """A non-opaque frame's loss through the kernels is bit-equal to the
+    plain versions' and its gradient w.r.t. the material table and the
+    beam width agrees within 1e-5 of the largest entry (gathers
+    accumulate with atomics on the card)."""
+    from radarays_ros_tpu_torch.opti.metrics import psnr
+    from radarays_ros_tpu_torch.sim.config import (Materials,
+                                                   RadarModelConfig,
+                                                   RadarParams)
+    from radarays_ros_tpu_torch.sim.pipeline import (float_u8_image,
+                                                     simulate_frame)
+    from radarays_ros_tpu_torch.utils.transforms import make_pose
+    from radarays_ros_tpu_torch.wave.cone import sample_cone_draws
+
+    mats = Materials.from_list([
+        dict(velocity=0.3, ambient=1.0, diffuse=0.0, specular=1.0),
+        dict(velocity=0.1, ambient=0.5, diffuse=0.4, specular=60.0)],
+        device=dev)
+    n_obj = int(small_scene.obj_ids.max()) + 1
+    cfg = RadarModelConfig(n_angles=64, n_cells=512, resolution=0.1,
+                           n_samples=8, n_reflections=2, ambient_noise=0,
+                           signal_denoising_triangular_width=15,
+                           opaque_materials=False, record_multi_path=True)
+    draws = sample_cone_draws(torch.Generator(dev).manual_seed(0), 8, 2)
+    pose = torch.from_numpy(make_pose([0.5, 0.5, 2.0]))
+    target = torch.full((512, 64), 3.0, device=dev)
+
+    def loss_and_grad(c):
+        leaves = [t.clone().requires_grad_(True) for t in mats]
+        bw = torch.tensor(0.17, device=dev, requires_grad=True)
+        params = RadarParams(Materials(*leaves), torch.ones(
+            n_obj, dtype=torch.int32, device=dev), bw)
+        res = simulate_frame(small_scene, params, c, pose, cone_draws=draws)
+        loss = -psnr(float_u8_image(res, c), target)
+        loss.backward()
+        return loss.detach(), torch.cat([*(t.grad for t in leaves),
+                                         bw.grad[None]])
+
+    n0 = CT.prep_flat.launches
+    lk, gk = loss_and_grad(cfg.replace(trace_engine="kernel"))
+    assert CT.prep_flat.launches > n0
+    lp, gp = loss_and_grad(cfg.replace(trace_engine="sweep",
+                                       draw_method="plain"))
+    assert torch.equal(lk, lp)
+    assert torch.isfinite(gk).all() and gk.abs().max() > 0
+    torch.testing.assert_close(gk, gp, rtol=0,
+                               atol=1e-5 * float(gp.abs().max()))

@@ -185,3 +185,57 @@ def test_bin_cells_matches_reference():
     np.testing.assert_array_equal(
         DR.bin_cells(torch.from_numpy(t), 0.0595238).numpy(),
         np.asarray(JDR.bin_cells(jnp.asarray(t), 0.0595238)))
+
+
+def _grad_case(case):
+    """(cell, s, bin kwargs) for the K5 gradient tests: taps, plain sum, or
+    max with some negative strengths."""
+    cell, s, ok = _signals(16, 200, 300, seed=0)
+    if case == "max":
+        s = np.where(ok, s - 0.5, -np.inf).astype(np.float32)
+        return cell, s, dict(n_cells=300, combine="max")
+    s = np.where(ok, s, 0.0).astype(np.float32)
+    w, mode = D.build_denoiser(1, 35, 0.35) if case == "taps" else (None, 0)
+    return cell, s, dict(n_cells=300, combine="sum", weights=w, w_mode=mode)
+
+
+def _torch_grad(fn, cell, s, g, kw):
+    st = torch.from_numpy(s).requires_grad_(True)
+    out = fn(torch.from_numpy(cell), st, **kw)
+    out.backward(torch.from_numpy(g))
+    return out.detach(), st.grad.numpy()
+
+
+@pytest.mark.parametrize("case", ["taps", "sum", "max"])
+def test_bin_gradient_matches_reference_vjp(case):
+    """The K5 Function's backward against jax.vjp of the reference's
+    custom_vjp (interpret): 2 ulp on the tap path (the FMA note above),
+    exact otherwise."""
+    cell, s, kw = _grad_case(case)
+    g = np.random.default_rng(3).normal(size=(16, 300)).astype(np.float32)
+    _, got = _torch_grad(bin_signals, cell, s, g, kw)
+    jkw = dict(kw, interpret=True)
+    if kw.get("weights") is not None:
+        jkw["weights"] = tuple(map(float, kw["weights"]))
+    _, vjp = jax.vjp(lambda x: bin_signals_pallas(jnp.asarray(cell), x, **jkw),
+                     jnp.asarray(s))
+    ref = np.asarray(vjp(jnp.asarray(g))[0])
+    assert np.abs(ref).max() > 0 and (ref == 0).any()
+    rtol = _TAP_RTOL if case == "taps" else 0.0
+    np.testing.assert_allclose(got, ref, rtol=rtol, atol=0)
+
+
+@pytest.mark.parametrize("case", ["taps", "sum", "max"])
+def test_bin_wrapper_gradient_equals_plain_version(case):
+    """The wrapper's gradient is the plain version's autograd gradient (on
+    the card the kernel's output has no autograd graph of its own; the
+    Function supplies it). Sum and max agree exactly; on the tap path
+    autograd sums the 35 tap adjoints in another f32 order, so the two
+    agree within 1e-6 of the largest gradient."""
+    cell, s, kw = _grad_case(case)
+    g = np.random.default_rng(4).normal(size=(16, 300)).astype(np.float32)
+    out, got = _torch_grad(bin_signals, cell, s, g, kw)
+    out_p, want = _torch_grad(_bin_plain, cell, s, g, kw)
+    assert torch.equal(out, out_p)
+    atol = 1e-6 * np.abs(want).max() if case == "taps" else 0.0
+    np.testing.assert_allclose(got, want, rtol=0, atol=atol)

@@ -30,6 +30,7 @@ from radarays_ros_tpu_torch.sim.config import (Materials, RadarModelConfig,
 from radarays_ros_tpu_torch.sim.pipeline import (float_u8_image,
                                                  simulate_frame,
                                                  simulate_frames)
+from radarays_ros_tpu_torch.sim import pipeline as P
 from radarays_ros_tpu_torch.sim.radar import Radar
 from radarays_ros_tpu_torch.utils.transforms import make_pose
 
@@ -57,23 +58,33 @@ def _parts():
             make_box((-6.0, -7.0, 0.0), (4.0, 1.0, 10.0))]
 
 
+def _both_params(mats):
+    """The reference's RadarParams for `mats` and the port's copy."""
+    jparams = JCFG.RadarParams.make(JCFG.Materials.from_list(mats),
+                                    _OBJ_MATS, beam_width_deg=15.0)
+    m = jparams.materials
+    return jparams, params_from_numpy(*(np.asarray(x) for x in (
+        m.velocity, m.ambient, m.diffuse, m.specular,
+        jparams.object_materials, jparams.beam_width)))
+
+
 @pytest.fixture(scope="module")
 def world():
     parts = _parts()
     scene = Scene.compose(parts, ["walls", "pillar", "slab"], chunk_size=8)
-    jparams = JCFG.RadarParams.make(JCFG.Materials.from_list(_MATS),
-                                    _OBJ_MATS, beam_width_deg=15.0)
-    m = jparams.materials
-    params = params_from_numpy(*(np.asarray(x) for x in (
-        m.velocity, m.ambient, m.diffuse, m.specular,
-        jparams.object_materials, jparams.beam_width)))
+    jparams, params = _both_params(_MATS)
     sa = JxScene.compose(parts, chunk_size=8).device_arrays(cache=False)
     return scene, scene.to_device("cpu"), params, sa, jparams
 
 
 def _jx_cfg(**kw):
-    return JCFG.RadarModelConfig(**_CFG, trace_engine="pallas3",
-                                 draw_method="pallas", **kw)
+    return JCFG.RadarModelConfig(**{**_CFG, **kw}, trace_engine="pallas3",
+                                 draw_method="pallas")
+
+
+# the pillar and the slab transmit (velocity > 0): refraction children live
+_MATS_T = [_MATS[0], _MATS[1],
+           dict(velocity=0.12, ambient=0.5, diffuse=0.4, specular=60.0)]
 
 
 def _inputs(key, cfg, beam_width):
@@ -125,6 +136,37 @@ def test_frame_matches_reference_frame(world, baked):
                            ref.image_float, ref.max_val, ref.image_u8)
     f = float_u8_image(got, cfg).numpy()
     assert np.abs(f - got.image_u8.numpy()).max() <= 0.5 + 1e-4
+
+
+@pytest.mark.parametrize("opaque,multipath", [(False, False), (False, True),
+                                              (True, True)])
+def test_refraction_and_multipath_frame_matches_reference(world, opaque,
+                                                          multipath):
+    """The refraction tree (the wave tensor doubles every pass) and the
+    multipath air returns against the reference's frame, whose signal order
+    (pass by pass, path then air; kind-major on the opaque path) fixes the
+    f32 sum order of the binning."""
+    scene, st, _, sa, _ = world
+    jparams, params = _both_params(_MATS if opaque else _MATS_T)
+    kw = dict(opaque_materials=opaque, record_multi_path=multipath,
+              multipath_threshold=0.3)
+    cfg = RadarModelConfig(**{**_CFG, **kw})
+    pose = make_pose([0.5, -0.3, 1.0])
+    key = jax.random.PRNGKey(5)
+    ref = simulate_frame_jit(sa, jparams, _jx_cfg(**kw), jnp.asarray(pose),
+                             tuple(jax.random.split(key)))
+    dirs, begin = _inputs(key, cfg, jparams.beam_width)
+    got = simulate_frame(st, params, cfg, torch.from_numpy(pose),
+                         local_dirs=torch.from_numpy(dirs),
+                         random_begin=torch.from_numpy(begin))
+    _assert_frame_contract(got.image_float, got.max_val, got.image_u8,
+                           ref.image_float, ref.max_val, ref.image_u8)
+    # the branch under test is live: it changes the frame
+    base = simulate_frame(st, params, cfg.replace(
+        opaque_materials=True, record_multi_path=False),
+        torch.from_numpy(pose), local_dirs=torch.from_numpy(dirs),
+        random_begin=torch.from_numpy(begin))
+    assert not torch.equal(base.image_float, got.image_float)
 
 
 def test_two_frame_batch_matches_reference_batch(world):
@@ -216,5 +258,53 @@ def test_radar_front_end(world):
                                          diffuse=0.5, specular=40.0)],
                          [1, 1, 1])
     assert not radar.cfg.opaque_materials
-    with pytest.raises(NotImplementedError, match="opaque"):
-        radar.simulate()
+    c = radar.simulate_image()          # the refraction tree now renders
+    assert c.shape == a.shape and c.max() > 0 and not np.array_equal(b, c)
+
+
+def test_radar_beam_width_update_rebuilds_cone(world, monkeypatch):
+    """Radar keeps the cone draws and rebuilds the directions from the
+    current beam width every frame, as the reference keeps its cone key
+    (sim/radar.py:190-193 there): after update_params with a doubled beam
+    width the next frame's cone offsets double. update_config with a
+    beam-shape field and update_params(resample=True) draw a new cone."""
+    scene = world[0]
+    params = RadarParams.make(Materials.from_list(_MATS), _OBJ_MATS,
+                              beam_width_deg=8.0)
+    radar = Radar(scene, params, RadarModelConfig(**_CFG), seed=2)
+    seen = []
+    start = P.start_waves
+
+    def spy(*args, **kw):
+        waves, sensor_pos = start(*args, **kw)
+        seen.append(waves.dir[0, 0].clone())    # azimuth 0: the beam frame
+        return waves, sensor_pos
+
+    monkeypatch.setattr(P, "start_waves", spy)
+
+    def offsets(d):
+        return torch.stack([-torch.asin(d[:, 2]),
+                            torch.atan2(d[:, 1], d[:, 0])])
+
+    pose = make_pose([0.5, -0.3, 1.0])
+    radar.simulate(pose)
+    radar.simulate()
+    assert torch.equal(seen[0], seen[1])          # the cone is kept
+    radar.update_params(params._replace(beam_width=params.beam_width * 2))
+    radar.simulate()
+    a0, a1 = offsets(seen[1]), offsets(seen[2])
+    np.testing.assert_allclose(a1.numpy(), 2.0 * a0.numpy(), rtol=1e-4,
+                               atol=1e-7)
+    # the reference: the same cone key at twice the width doubles offsets
+    key = jax.random.PRNGKey(1)
+    from radarays_ros_tpu.wave.cone import sample_cone_offsets
+    r1 = np.array(sample_cone_offsets(key, 0.1, 8, 2, 0.8))
+    r2 = np.array(sample_cone_offsets(key, 0.2, 8, 2, 0.8))
+    np.testing.assert_allclose(r2, 2.0 * r1, rtol=1e-6)
+    radar.update_config(beam_sample_dist=1)
+    radar.simulate()
+    assert radar.cfg.beam_sample_dist == 1
+    assert not torch.allclose(offsets(seen[3]), a1)
+    radar.update_params(radar.params, resample=True)
+    radar.simulate()
+    assert not torch.equal(seen[4], seen[3])

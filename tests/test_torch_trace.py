@@ -9,7 +9,8 @@ tests/test_trace.py:77-83 (hit and obj_id equal, t within 1e-4).
 
 The scene (make_urban_scene(200, 60, seed=3) at chunk size 8) has 304
 chunks, at least 8 groups of 32, so both packages take the hierarchical
-prep.
+prep; the same buildings at chunk size 32 have 80 chunks, under 256
+supergroups, so both take the flat prep (K4).
 """
 
 import numpy as np
@@ -100,6 +101,81 @@ def test_hier_prep_matches_reference(scenes, kernels):
     np.testing.assert_array_equal(t_last.numpy(),
                                   np.asarray(r_tlast).reshape(-1))
     assert np.isfinite(entry.numpy()).any()
+
+
+@pytest.mark.parametrize("kernels", [False, True])
+def test_flat_prep_matches_reference(kernels):
+    """Plain K4 (the flat prep, via _run_prep and via the wrapper) equals
+    the reference's _run_prep_kernel flat branch (interpret) bit for bit on
+    a scene under 256 supergroups."""
+    parts, names = make_urban_scene(n_buildings=200, extent=60.0, seed=3)
+    st = Scene.compose(parts, names, chunk_size=32).to_device("cpu")
+    o, d, bud = _fan(512, seed=7)
+    o, d, inv_d, bud, lo, hi, C2 = CT._prep_inputs(
+        st, torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(bud),
+        ray_block=RB, group=1)
+    Cp = lo.shape[0]
+    assert C2 == st.n_chunks == 80 and Cp < 8 * CT._SG
+    B = o.shape[0] // RB
+    CT.prep_flat.launches = 0
+    entry, t_last = CT._run_prep(lo, hi, o, inv_d, bud, t_max=1000.0, RB=RB,
+                                 kernels=kernels)
+    assert CT.prep_flat.launches == 0      # CPU tensors: plain version
+    r_entry, r_tlast = JP._run_prep_kernel(
+        jnp.asarray(lo.numpy()), jnp.asarray(hi.numpy()),
+        jnp.asarray(o.numpy().reshape(B, RB, 3).transpose(0, 2, 1)),
+        jnp.asarray(inv_d.numpy().reshape(B, RB, 3).transpose(0, 2, 1)),
+        jnp.asarray(bud.numpy().reshape(B, 1, RB)), Cp=Cp, RB=RB,
+        n_blocks=B, t_max=1000.0, interpret=True)
+    np.testing.assert_array_equal(entry.numpy(), np.asarray(r_entry))
+    np.testing.assert_array_equal(t_last.numpy(),
+                                  np.asarray(r_tlast).reshape(-1))
+    assert np.isfinite(entry.numpy()).any() and np.isinf(
+        entry.numpy()).any()
+    w_entry, w_tlast = CT.prep_flat(lo, hi, o, inv_d, bud, 1000.0, RB, RB)
+    assert torch.equal(w_entry, entry) and torch.equal(w_tlast, t_last)
+
+
+def test_winner_search_is_detached_and_gradient_is_refinement(scenes,
+                                                              monkeypatch):
+    """Gradients stop before the winner search (the reference's
+    stop_gradient, pallas_trace.py:1187-1189): best_t out of the sweep
+    carries no autograd graph, and dt/d(dirs) is the Moller-Trumbore
+    refinement's against the winning triangle."""
+    st, _ = scenes
+    o, d, bud = _fan(256, seed=8)
+    seen = {}
+    finalize = CT._finalize_packed
+
+    def spy(origs, dirs, best_t, rows, **kw):
+        seen.update(best_t=best_t, rows=rows)
+        return finalize(origs, dirs, best_t, rows, **kw)
+
+    monkeypatch.setattr(CT, "_finalize_packed", spy)
+    o_t = torch.from_numpy(o).requires_grad_(True)
+    d_t = torch.from_numpy(d).requires_grad_(True)
+    b_t = torch.from_numpy(bud).requires_grad_(True)
+    res = CT.trace_sweep(st, o_t, d_t, t_budget=b_t * 1.0, ray_block=RB,
+                         kernels=False)
+    assert seen["best_t"].grad_fn is None
+    assert not seen["best_t"].requires_grad
+    hit = res.hit
+    assert hit.float().mean() > 0.2
+    torch.where(hit, res.t, 0.0).sum().backward()
+    # the refinement by hand: t = (e2 . (o - v0) x e1) / (e1 . d x e2)
+    rows = seen["rows"]
+    v0, e1, e2 = rows[:, 0:3], rows[:, 3:6], rows[:, 6:9]
+    d_r = d_t.detach().clone().requires_grad_(True)
+    t_mt = (torch.sum(e2 * torch.linalg.cross(o_t.detach() - v0, e1), -1)
+            / torch.sum(e1 * torch.linalg.cross(d_r, e2), -1))
+    torch.where(hit, t_mt, 0.0).sum().backward()
+    h = hit.numpy()
+    assert np.isfinite(d_t.grad.numpy()).all()
+    assert not d_t.grad.numpy()[~h].any()
+    np.testing.assert_allclose(d_t.grad.numpy()[h], d_r.grad.numpy()[h],
+                               rtol=1e-6, atol=1e-6)
+    assert np.abs(d_t.grad.numpy()[h]).max() > 0
+    assert b_t.grad is None or not b_t.grad.any()
 
 
 def test_flat_prep_equals_hier_prep(scenes):

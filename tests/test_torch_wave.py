@@ -135,3 +135,54 @@ def test_cone_distributions_match_by_moments(dist):
     assert abs(a.std() - b.std()) < 0.05 * b.std()
     for comp in (1, 2):          # symmetric about the beam axis
         assert abs(got[:, comp].mean()) < 6 * got[:, comp].std() / np.sqrt(n)
+
+
+def _jax_draws(key, n, dist):
+    """The reference's own draws inside sample_cone_offsets
+    (wave/cone.py:66-74): theta, then the radial draw."""
+    k_angle, k_radius = jax.random.split(key)
+    theta = jax.random.uniform(k_angle, (n,), jnp.float32, -jnp.pi, jnp.pi)
+    radial = (jax.random.uniform(k_radius, (n,), jnp.float32) if dist < 2
+              else jax.random.normal(k_radius, (n,), jnp.float32))
+    return torch.from_numpy(np.array(theta)), torch.from_numpy(np.array(radial))
+
+
+@pytest.mark.parametrize("dist", [0, 1, 2, 3])
+def test_cone_from_reference_draws_matches_reference(dist):
+    """Directions built from the reference's draws equal its sample_cone_*
+    outputs, and their derivative w.r.t. the beam width is its gradient."""
+    key = jax.random.PRNGKey(9)
+    theta, radial = _jax_draws(key, 64, dist)
+    mean = np.array([0.6, 0.0, 0.8], np.float32)
+    _close(torch.stack(C.cone_offsets(theta, radial, 0.2, dist, 0.8)),
+           jnp.stack(JC.sample_cone_offsets(key, 0.2, 64, dist, 0.8)))
+    _close(C.cone_local(theta, radial, 0.2, dist, 0.8),
+           JC.sample_cone_local(key, 0.2, 64, dist, 0.8))
+    _close(C.cone_dirs(theta, radial, mean, 0.2, dist, 0.8),
+           JC.sample_cone_dirs(key, mean, 0.2, 64, dist, 0.8))
+    w = torch.tensor(0.2, requires_grad=True)
+    C.cone_local(theta, radial, w, dist, 0.8)[:, 2].sum().backward()
+    ref = jax.grad(lambda x: JC.sample_cone_local(key, x, 64, dist, 0.8)
+                   [:, 2].sum())(jnp.float32(0.2))
+    _close(w.grad, ref, rtol=1e-4, atol=1e-5)
+
+
+def test_sample_cone_mean_and_generator_draws():
+    """sample_cone_mean: the mean ray, then cone rays around it built from
+    the generator's draws (the reference's layout, wave/cone.py:100-109);
+    sample_cone_local is cone_local of sample_cone_draws."""
+    mean = torch.tensor([0.0, 0.6, 0.8])
+    g1 = torch.Generator().manual_seed(4)
+    got = C.sample_cone_mean(g1, mean, 0.3, 9, 2, 0.8)
+    g2 = torch.Generator().manual_seed(4)
+    draws = C.sample_cone_draws(g2, 8, 2)
+    assert got.shape == (9, 3)
+    assert torch.equal(got[0], mean)
+    assert torch.equal(got[1:], C.cone_dirs(*draws, mean, 0.3, 2, 0.8))
+    cos = got[1:] @ mean
+    assert (cos < 1.0).all() and (cos > np.cos(0.5)).all()
+    g3 = torch.Generator().manual_seed(4)
+    assert torch.equal(C.sample_cone_local(g3, 0.3, 8, 2, 0.8),
+                       C.cone_local(*draws, 0.3, 2, 0.8))
+    with pytest.raises(ValueError, match="sample_dist"):
+        C.sample_cone_draws(g3, 8, 4)
