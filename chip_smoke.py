@@ -35,7 +35,25 @@ Phases (one line of figures each; any failure raises and exits non-zero):
      evaluations to 40 dB, launch counts (K4, K1, K5 > 0); one loss and
      gradient through the kernels and through the plain versions (loss
      bit-equal, gradient finite, nonzero and within 1e-5 x max|g|), and
-     K5's backward time at the fit's shapes.
+     K5's backward time at the fit's shapes;
+  8. the command line (io.cli.main, in this process so that the launch
+     counters see it) over files written to a temporary directory: phase
+     5's scene as a binary PLY, a scene config, the KAIST preset (and its
+     include_motion twin) and a circular TUM trajectory —
+     a. `prime-cache` (cold host build) against the warm start from the
+        cache (bit-equal to phase 5's build), and `info`'s counts;
+     b. `simulate --batch 4 --synced` of 8 frames as .npy, bit-identical to
+        an in-process simulate_frames with the same poses and generator
+        seed (K1, K2, K3, K5 launch, K4 not), and the same run as PNG;
+     c. `simulate` with include_motion (per-azimuth poses, 2 frames), and
+        one such frame through the kernels and through the plain versions
+        under the frame contract;
+     d. `rays --bounces 4`, one shot and a 360-ray fan: the kernel engine's
+        JSON equals the sweep engine's, the shot's segments equal brute's
+        (order, kinds, media exactly; positions and energies within 1e-4);
+     e. `eval` stamp-synced against 8b's frames, `render` of one frame, and
+        `optimize` (10 gradient steps, slot 1) on the 10k scene's PLY: a
+        finite loss, a checkpoint, and an --out-config read back.
 The last three lines of stdout are the kernel table as JSON (each row's
 launches from the timed run of the path that measured it: K1, K2, K3, K5 in
 phase 5, K4 in phase 6), the card's name and power limit as nvidia-smi
@@ -59,6 +77,11 @@ TIMED_BATCHES = 10
 GATE_RAYS = 131072
 FIT_STEPS = 60       # Adam steps of phase 7, split around a checkpoint
 FIT_TARGET_DB = 40.0
+CLI_FRAMES = 8       # frames of phase 8b's synced replay
+CLI_SEED = 5
+# bench.py:119-182: air, and opaque wall-stone on every object
+AIR = dict(velocity=0.3, ambient=1.0, diffuse=0.0, specular=1.0)
+WALL = dict(velocity=0.0, ambient=1.0, diffuse=0.0, specular=3000.0)
 
 
 def log(msg: str) -> None:
@@ -228,29 +251,19 @@ def kaist_setup(device, n_buildings: int = 83000):
     """bench.py:119-182: the MulRan KAIST preset over the urban scene
     (~1M triangles, or the 10k companion at 800 buildings), opaque
     wall-stone everywhere, the material map baked."""
-    import numpy as np
-
     from radarays_ros_tpu_torch.geom.primitives import make_urban_scene
-    from radarays_ros_tpu_torch.geom.scene import Scene, bake_tri_aux
-    from radarays_ros_tpu_torch.sim.config import (Materials,
-                                                   RadarModelConfig,
-                                                   RadarParams)
+    from radarays_ros_tpu_torch.geom.scene import Scene
+    from radarays_ros_tpu_torch.sim.config import RadarModelConfig
 
     t0 = time.perf_counter()
     parts, names = make_urban_scene(n_buildings=n_buildings, extent=300.0,
                                     seed=7)
     scene = Scene.compose(parts, names, chunk_size=256)
     t1 = time.perf_counter()
-    st = scene.to_device(device)
+    host = scene.host_arrays(cache=False)
+    t_host = time.perf_counter()
+    st, params = kaist_tensors(host, scene.n_objects, device)
     t2 = time.perf_counter()
-    materials = Materials.from_list(
-        [dict(velocity=0.3, ambient=1.0, diffuse=0.0, specular=1.0),
-         dict(velocity=0.0, ambient=1.0, diffuse=0.0, specular=3000.0)],
-        device=device)
-    om = np.ones(scene.n_objects, np.int32)
-    params = RadarParams.make(materials, om, beam_width_deg=10.0)
-    st = bake_tri_aux(st, params.object_materials.float()[
-        st.obj_ids.clamp(0, len(om) - 1).long()])
     cfg = RadarModelConfig(
         n_angles=400, n_cells=3424, resolution=0.0595238, n_samples=50,
         n_reflections=4, beam_sample_dist=2,
@@ -264,8 +277,26 @@ def kaist_setup(device, n_buildings: int = 83000):
         opaque_materials=True, trace_engine="kernel", draw_method="auto",
         trace_ray_block=2048, trace_aux_baked=True)
     return scene, st, params, cfg, dict(
-        scene_gen_s=t1 - t0, host_build_and_upload_s=t2 - t1,
-        n_triangles=st.n_triangles, n_chunks=st.n_chunks)
+        scene_gen_s=t1 - t0, host_build_s=t_host - t1,
+        host_build_and_upload_s=t2 - t1,
+        n_triangles=st.n_triangles, n_chunks=st.n_chunks), host
+
+
+def kaist_tensors(host, n_objects: int, device):
+    """Upload a host build with the KAIST materials (wall-stone on every
+    object, beam width 10 deg) and bake the material map, as Radar does."""
+    import numpy as np
+
+    from radarays_ros_tpu_torch.geom.scene import bake_tri_aux, scene_tensors
+    from radarays_ros_tpu_torch.sim.config import Materials, RadarParams
+
+    st = scene_tensors(host, device)
+    params = RadarParams.make(Materials.from_list([AIR, WALL], device=device),
+                              np.ones(n_objects, np.int32),
+                              beam_width_deg=10.0)
+    st = bake_tri_aux(st, params.object_materials.float()[
+        st.obj_ids.clamp(0, n_objects - 1).long()])
+    return st, params
 
 
 def counters():
@@ -276,6 +307,17 @@ def counters():
     return {"sweep": CT.sweep, "prep_hier": CT.prep_hier,
             "coarse_words": CT.coarse_words, "prep_flat": CT.prep_flat,
             "bin": bin_signals}
+
+
+def zero_counts() -> dict:
+    wrappers = counters()
+    for fn in wrappers.values():
+        fn.launches = 0
+    return wrappers
+
+
+def read_counts(wrappers) -> dict:
+    return {k: fn.launches for k, fn in wrappers.items()}
 
 
 def frames_phase(tag: str, st, params, cfg, dev, expect_zero=(),
@@ -307,9 +349,7 @@ def frames_phase(tag: str, st, params, cfg, dev, expect_zero=(),
     warm = run_batch()                              # warm-up, not counted
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    wrappers = counters()
-    for fn in wrappers.values():
-        fn.launches = 0
+    wrappers = zero_counts()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
@@ -319,7 +359,7 @@ def frames_phase(tag: str, st, params, cfg, dev, expect_zero=(),
     end.record()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in wrappers.items()}
+    launches = read_counts(wrappers)
     dev_ms = start.elapsed_time(end)
     n_frames = TIMED_BATCHES * BATCH
     check(all((n == 0) == (k in expect_zero) for k, n in launches.items()),
@@ -409,7 +449,7 @@ def fit_setup(device):
 
     parts, names = make_urban_scene(n_buildings=200, extent=150.0, seed=11)
     scene = Scene.compose(parts, names, chunk_size=256)
-    st = scene.to_device(device)
+    st = scene.to_device(device, cache=False)
     om = np.ones(scene.n_objects, np.int32)
     om[0] = 2                                      # the ground
     st = bake_tri_aux(st, torch.from_numpy(om).to(device).float()[
@@ -487,9 +527,7 @@ def fit_phase(dev) -> dict:
     info = dict(n_triangles=st.n_triangles, n_chunks=st.n_chunks,
                 setup_s=setup_s, true_psnr_db=-float(objective(true)))
 
-    wrappers = counters()
-    for fn in wrappers.values():
-        fn.launches = 0
+    wrappers = zero_counts()
     half = FIT_STEPS // 2
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -508,7 +546,7 @@ def fit_phase(dev) -> dict:
     # the first half carries the process's first backward passes (a
     # one-time cost of several seconds); the second half is steady state
     second_s = time.perf_counter() - t1
-    launches = {k: fn.launches for k, fn in wrappers.items()}
+    launches = read_counts(wrappers)
     hist = list(res1.history) + list(res2.history)
     check(all(launches[k] > 0 for k in ("prep_flat", "sweep", "bin"))
           and launches["prep_hier"] == 0 and launches["coarse_words"] == 0,
@@ -576,6 +614,302 @@ def fit_phase(dev) -> dict:
     return info
 
 
+def cli(argv) -> tuple:
+    """io.cli.main in this process: (captured stdout, wall seconds); a
+    nonzero exit code fails the run."""
+    import contextlib
+    import io
+
+    from radarays_ros_tpu_torch.io.cli import main as cli_main
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main([str(a) for a in argv])
+    dt = time.perf_counter() - t0
+    check(rc == 0, f"cli {argv[0]} exited {rc}: {buf.getvalue()[-2000:]}")
+    return buf.getvalue(), dt
+
+
+def show(tag: str, info: dict, *keys) -> None:
+    log(f"[{tag}] " + json.dumps({k: info[k] for k in keys}))
+
+
+def match(pattern: str, text: str):
+    import re
+
+    m = re.search(pattern, text)
+    check(m is not None, f"no line matching {pattern!r} in {text[-2000:]!r}")
+    return m
+
+
+def segments_close(got: dict, want: dict) -> float:
+    """Two rays JSONs hold the same segments: order, bounce, kind, medium
+    and material exactly, positions and energies within 1e-4. Returns the
+    largest difference."""
+    import numpy as np
+
+    check(got["n_rays"] == want["n_rays"]
+          and len(got["segments"]) == len(want["segments"]) > 0,
+          "rays: segment counts differ or are 0")
+    err = 0.0
+    for a, b in zip(got["segments"], want["segments"]):
+        check(all(a[k] == b[k] for k in ("bounce", "kind", "medium",
+                                         "material_id")), f"rays: {a} vs {b}")
+        va = np.array(a["start"] + a["end"] + [a["energy"]])
+        vb = np.array(b["start"] + b["end"] + [b["energy"]])
+        err = max(err, float(np.abs(va - vb).max()))
+    check(err <= 1e-4, f"rays: segments {err} apart")
+    return err
+
+
+def cli_phase(dev, scene5, host5, cfg, info5, scene10) -> dict:
+    """Phase 8: the user's path through io.cli on files (module doc)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from radarays_ros_tpu_torch.geom.mesh import load_mesh, save_ply
+    from radarays_ros_tpu_torch.io.config import (load_scene_config,
+                                                  save_preset,
+                                                  save_scene_config)
+    from radarays_ros_tpu_torch.io.image_io import read_png_gray
+    from radarays_ros_tpu_torch.io.trajectory import Trajectory
+    from radarays_ros_tpu_torch.sim import pipeline as P
+    from radarays_ros_tpu_torch.sim.config import Materials
+    from radarays_ros_tpu_torch.wave.cone import sample_cone_local
+
+    K_1M = ("sweep", "prep_hier", "coarse_words", "bin")
+    info = {}
+    t_phase = time.perf_counter()
+    old_cache = os.environ.get("RADARAYS_SCENE_CACHE")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        def path(name):
+            return os.path.join(tmp, name)
+
+        os.environ["RADARAYS_SCENE_CACHE"] = path("cache")
+        try:
+            # ---- the files a user brings
+            t0 = time.perf_counter()
+            save_ply(path("urban_1m.ply"), scene5)
+            info["ply_write_s"] = time.perf_counter() - t0
+            info["ply_mib"] = os.path.getsize(path("urban_1m.ply")) / 2**20
+            save_ply(path("urban_10k.ply"), scene10)
+            for name, n_obj, wall in (
+                    ("scene_1m.yaml", scene5.n_objects, WALL),
+                    ("scene_10k.yaml", scene10.n_objects, WALL),
+                    ("start_10k.yaml", scene10.n_objects,
+                     dict(WALL, ambient=0.6, diffuse=0.3, specular=1000.0))):
+                save_scene_config(path(name), Materials.from_list([AIR, wall]),
+                                  np.ones(n_obj, np.int32), material_id_air=0)
+            save_preset(path("kaist.yaml"), cfg, beam_width_deg=10.0)
+            save_preset(path("kaist_motion.yaml"),
+                        cfg.replace(include_motion=True), beam_width_deg=10.0)
+            Trajectory.circular(radius=5.0, n=CLI_FRAMES, period=4.0,
+                                z=2.0).save_tum(path("traj.txt"))
+            traj = Trajectory.load_tum(path("traj.txt"))
+            common = ["--mesh", path("urban_1m.ply"), "--scene-config",
+                      path("scene_1m.yaml"), "--traj", path("traj.txt"),
+                      "--seed", CLI_SEED, "--device", "cuda"]
+            kaist = ["--preset", path("kaist.yaml")]
+
+            # ---- 8a. PLY load, prime-cache (cold) vs the warm start, info
+            t0 = time.perf_counter()
+            loaded = load_mesh(path("urban_1m.ply"))
+            info["ply_load_s"] = time.perf_counter() - t0
+            check(np.array_equal(loaded.verts, scene5.verts)
+                  and np.array_equal(loaded.obj_ids, scene5.obj_ids),
+                  "the PLY does not read back to phase 5's scene")
+            out, info["prime_cache_s"] = cli(["prime-cache", "--mesh",
+                                              path("urban_1m.ply")])
+            match(r"primed \d+ triangles", out)
+            t0 = time.perf_counter()
+            warm = loaded.host_arrays(cache=True)
+            info["warm_start_s"] = time.perf_counter() - t0
+            info["cold_build_s_phase5"] = info5["host_build_s"]
+            check(all(np.array_equal(a, b) and np.asarray(a).dtype
+                      == np.asarray(b).dtype for a, b in zip(warm, host5)),
+                  "the warm SceneHost differs from the cold build")
+            out, info["info_s"] = cli(["info", "--mesh",
+                                       path("urban_1m.ply")])
+            n_tri = int(match(r"triangles: (\d+)", out).group(1))
+            n_chunk, cs = map(int, match(r"chunks:\s+(\d+) x (\d+)",
+                                         out).groups())
+            check(n_tri == scene5.n_triangles
+                  and n_chunk == info5["n_chunks"]
+                  and n_chunk * cs == info5["n_triangles"],
+                  f"info: {n_tri} triangles, {n_chunk} x {cs} chunks")
+            show("8a cache", info, *info)
+
+            # ---- 8b. synced batch replay, .npy and .png
+            sim = ["simulate", *common, *kaist, "--batch", BATCH,
+                   "--synced", "--frames", CLI_FRAMES]
+            wrappers = zero_counts()
+            out, info["simulate_npy_s"] = cli(
+                sim + ["--format", "npy", "--out", path("sim_npy")])
+            launches = read_counts(wrappers)
+            check(all(launches[k] > 0 for k in K_1M)
+                  and launches["prep_flat"] == 0,
+                  f"simulate launches {launches}")
+            line = match(rf"{CLI_FRAMES} frames \(batched x{BATCH}\) in "
+                         r"([\d.]+) s -> ([\d.]+) Hz", out)
+            info.update(simulate_launches=launches,
+                        cli_npy_line=line.group(0),
+                        cli_npy_frames_per_s=float(line.group(2)))
+            got = np.stack([np.load(path(f"sim_npy/frame_{i:05d}.npy"))
+                            for i in range(CLI_FRAMES)])
+            st, params = kaist_tensors(host5, scene5.n_objects, dev)
+            gen = torch.Generator(dev).manual_seed(CLI_SEED)
+            with torch.no_grad():
+                want = np.concatenate([P.simulate_frames(
+                    st, params, cfg, torch.from_numpy(traj.poses_at(
+                        traj.stamps[b:b + BATCH])), generator=gen)
+                    .image_u8.cpu().numpy()
+                    for b in range(0, CLI_FRAMES, BATCH)])
+            check(got.shape == (CLI_FRAMES, cfg.n_cells, cfg.n_angles)
+                  and np.array_equal(got, want),
+                  "CLI frames differ from the in-process simulate_frames")
+            info["nonzero_column_share"] = (got > 0).any(axis=1).mean(
+                axis=1).tolist()
+            check(min(info["nonzero_column_share"]) > 0.5, "trivial frames")
+            out, info["simulate_png_s"] = cli(
+                sim + ["--format", "png", "--out", path("sim_png")])
+            info["cli_png_frames_per_s"] = float(match(
+                r"frames \(batched x\d+\) in [\d.]+ s -> ([\d.]+) Hz",
+                out).group(1))
+            check(np.array_equal(read_png_gray(path(
+                "sim_png/frame_00000.png")), got[0]),
+                "the PNG frame differs from the .npy")
+            show("8b simulate", info, "simulate_npy_s", "cli_npy_line",
+                 "cli_npy_frames_per_s", "simulate_png_s",
+                 "cli_png_frames_per_s", "simulate_launches")
+
+            # ---- 8c. include_motion: per-azimuth poses
+            wrappers = zero_counts()
+            out, info["motion_s"] = cli(
+                ["simulate", *common, "--preset", path("kaist_motion.yaml"),
+                 "--synced", "--frames", 2, "--format", "npy", "--out",
+                 path("motion")])
+            info["motion_launches"] = read_counts(wrappers)
+            check(all(info["motion_launches"][k] > 0 for k in K_1M),
+                  f"motion launches {info['motion_launches']}")
+            match(r"2 frames in [\d.]+ s", out)
+            mframes = [np.load(path(f"motion/frame_{i:05d}.npy"))
+                       for i in range(2)]
+            check(all(f.shape == (cfg.n_cells, cfg.n_angles) and f.any()
+                      for f in mframes), "motion frames empty or misshapen")
+            mcfg = cfg.replace(include_motion=True)
+            poses = torch.from_numpy(traj.poses_for_scan(
+                traj.stamps[0], 0.25, cfg.n_angles)).to(dev)
+            g = torch.Generator(dev).manual_seed(1)
+            kw = dict(local_dirs=sample_cone_local(
+                g, params.beam_width, cfg.n_samples, cfg.beam_sample_dist,
+                cfg.beam_sample_dist_normal_p_in_cone),
+                random_begin=torch.randint(0, 1000, (cfg.n_angles,),
+                                           generator=g, device=dev))
+            with torch.no_grad():
+                fk = P.simulate_frame(st, params, mcfg, poses, **kw)
+                fp = P.simulate_frame(st, params, mcfg.replace(
+                    trace_engine="sweep", draw_method="plain"), poses, **kw)
+            info["motion_frame_vs_plain"] = frame_contract(fk, fp)
+            del st, fk, fp
+            show("8c include_motion", info, "motion_s", "motion_launches",
+                 "motion_frame_vs_plain")
+
+            # ---- 8d. rays: a 4-bounce shot and a 360-ray fan
+            rays = {}
+            for mode, extra in (("single", []), ("fan", ["--all-directions"])):
+                for engine in ("kernel", "sweep") + (
+                        ("brute",) if mode == "single" else ()):
+                    out_json = path(f"rays_{mode}_{engine}.json")
+                    wrappers = zero_counts()
+                    _, dt = cli(["rays", *common, *kaist, "--bounces", 4,
+                                 "--yaw", 0.3, "--engine", engine,
+                                 "--compact", "--out", out_json, *extra])
+                    rays[mode, engine] = json.loads(open(out_json).read())
+                    info[f"rays_{mode}_{engine}_s"] = dt
+                    if engine == "kernel":
+                        n = read_counts(wrappers)
+                        info[f"rays_{mode}_launches"] = n
+                        check(n["sweep"] == n["prep_hier"]
+                              == n["coarse_words"] == 4 and n["bin"] == 0,
+                              f"rays {mode} launches {n}")
+                check(rays[mode, "kernel"] == rays[mode, "sweep"],
+                      f"rays {mode}: kernel JSON differs from sweep's")
+                info[f"rays_{mode}_segments"] = len(
+                    rays[mode, "kernel"]["segments"])
+            info["rays_single_vs_brute_max_err"] = segments_close(
+                rays["single", "kernel"], rays["single", "brute"])
+            info["rays_single_equals_brute"] = (
+                rays["single", "kernel"] == rays["single", "brute"])
+            show("8d rays", info, *(k for k in info if k.startswith("rays_")))
+
+            # ---- 8e. eval against 8b's frames, render, optimize
+            with open(path("sim_npy/stamps.txt"), "w") as f:
+                f.writelines(f"frame_{i:05d}.npy {float(traj.stamps[i])!r}\n"
+                             for i in range(CLI_FRAMES))
+            out, info["eval_s"] = cli(
+                ["eval", "--real", path("sim_npy"), *common, *kaist,
+                 "--metrics", "psnr,ssim",
+                 "--out", path("eval.json")])
+            report = json.loads(open(path("eval.json")).read())
+            check(report["n_frames"] == CLI_FRAMES
+                  and report["out_of_traj"] == 0
+                  and report["sync_error_s"]["max"] == 0.0
+                  and np.isfinite(report["summary"]["psnr"]["mean"]),
+                  f"eval report {report['summary']}")
+            info["eval_summary"] = report["summary"]
+            out, info["render_s"] = cli(
+                ["render", "--frame", path("sim_npy/frame_00000.npy"),
+                 "--out", path("cart.png"), "--color", "--stats-out",
+                 path("stats.json")])
+            check(os.path.getsize(path("cart.png")) > 0
+                  and "polar_stats" in json.loads(open(path("stats.json"))
+                                                  .read()), "render output")
+            # optimize on the 10k scene: the target rendered at the true
+            # materials, the fit started from another wall
+            ten = ["--mesh", path("urban_10k.ply"), "--preset",
+                   path("kaist.yaml"), "--traj", path("traj.txt"),
+                   "--seed", CLI_SEED, "--device", "cuda"]
+            cli(["simulate", *ten, "--scene-config", path("scene_10k.yaml"),
+                 "--format", "npy", "--out", path("target")])
+            wrappers = zero_counts()
+            out, info["optimize_s"] = cli(
+                ["optimize", *ten, "--scene-config", path("start_10k.yaml"),
+                 "--target", path("target/frame_00000.npy"), "--slots", 1,
+                 "--steps", 10, "--checkpoint", path("fit.npz"),
+                 "--out-config", path("fit.yaml")])
+            info["optimize_launches"] = read_counts(wrappers)
+            check(all(info["optimize_launches"][k] > 0
+                      for k in ("sweep", "prep_flat", "bin"))
+                  and info["optimize_launches"]["prep_hier"] == 0,
+                  f"optimize launches {info['optimize_launches']}")
+            info["optimize_initial_psnr_db"] = float(match(
+                r"initial PSNR ([-\d.]+) dB", out).group(1))
+            info["optimize_final_psnr_db"] = float(match(
+                r"final PSNR ([-\d.]+) dB over 10 evaluations", out).group(1))
+            fitted = load_scene_config(path("fit.yaml"))
+            check(np.isfinite(info["optimize_final_psnr_db"])
+                  and os.path.getsize(path("fit.npz")) > 0
+                  and all(bool(torch.isfinite(t).all())
+                          for t in fitted.materials)
+                  and fitted.materials.n == 2, "optimize outputs")
+            info["fitted_wall"] = [float(t[1]) for t in fitted.materials]
+            show("8e eval/render/optimize", info, "eval_s", "eval_summary",
+                 "render_s", "optimize_s", "optimize_launches",
+                 "optimize_initial_psnr_db", "optimize_final_psnr_db",
+                 "fitted_wall")
+            info["phase_s"] = time.perf_counter() - t_phase
+            show("8 cli", info, "phase_s")
+        finally:
+            if old_cache is None:
+                os.environ.pop("RADARAYS_SCENE_CACHE", None)
+            else:
+                os.environ["RADARAYS_SCENE_CACHE"] = old_cache
+    return info
+
+
 def main() -> int:
     import torch
 
@@ -594,6 +928,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     details = {}
+    t_main = time.perf_counter()
 
     # ---- 1. environment
     smi = subprocess.run(
@@ -622,7 +957,8 @@ def main() -> int:
     # ---- 3. kernels vs plain at the gate's shapes
     t0 = time.perf_counter()
     parts, names = make_urban_scene(n_buildings=16600, extent=140.0, seed=11)
-    gate = Scene.compose(parts, names, chunk_size=256).to_device(dev)
+    gate = Scene.compose(parts, names, chunk_size=256).to_device(
+        dev, cache=False)
     gate_build = time.perf_counter() - t0
     o, d = fan(GATE_RAYS, dev)          # 400 x 327 = 130,800 rays
     n_rays = o.shape[0]
@@ -672,27 +1008,34 @@ def main() -> int:
     del gate, rk, rs, o, d
 
     # ---- 5. frames on the main path
-    scene, st, params, cfg, info = kaist_setup(dev)
+    scene, st, params, cfg, info, host5 = kaist_setup(dev)
     log(f"[5 scene] {json.dumps(info)}")
     frames, launches, mk, fvp = frames_phase("5", st, params, cfg, dev,
                                              expect_zero=("prep_flat",))
     details.update(frames=dict(frames, gpu=smi), kernels_main_path=mk,
                    frame_vs_plain=fvp)
-    del scene, st
+    scene5, cfg5, info5 = scene, cfg, info
+    del st
 
     # ---- 6. frames on the 10k companion scene (the flat prep K4)
-    scene, st, params, cfg, info = kaist_setup(dev, n_buildings=800)
+    scene, st, params, cfg, info, _ = kaist_setup(dev, n_buildings=800)
     log(f"[6 scene] {json.dumps(info)}")
     frames10, launches10, mk10, fvp10 = frames_phase(
         "6", st, params, cfg, dev, expect_zero=("prep_hier", "coarse_words"),
         min_column_share=0.1)      # 800 buildings over 600 m x 600 m
     details.update(frames_10k=dict(frames10, gpu=smi), kernels_10k=mk10,
                    frame_vs_plain_10k=fvp10)
+    scene10 = scene
     del scene, st
 
     # ---- 7. the fit
     details["fit"] = fit_phase(dev)
     details["fit"]["gpu"] = smi
+
+    # ---- 8. the command line on the card
+    details["cli"] = cli_phase(dev, scene5, host5, cfg5, info5, scene10)
+    details["cli"]["gpu"] = smi
+    del scene5, host5, scene10
 
     source = {"sweep": "radarays_ros_tpu_torch/csrc/sweep.cu",
               "prep_hier": "radarays_ros_tpu_torch/csrc/prep.cu",
@@ -716,6 +1059,8 @@ def main() -> int:
                   ms=rows[k][1][k]["ms"], plain_ms=rows[k][1][k]["plain_ms"])
              for k in source]
     details["kernels"] = table
+    details["total_s"] = time.perf_counter() - t_main
+    log(f"[total] {details['total_s']:.1f} s from phase 1 to the table")
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(details, f, indent=2)
     print(json.dumps({"kernels": table}))

@@ -26,10 +26,15 @@ c*chunk_size .. (c+1)*chunk_size - 1 of every per-triangle tensor.
 from __future__ import annotations
 
 import dataclasses
+import logging
+import os
+import warnings
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+
+_log = logging.getLogger(__name__)
 
 # Sentinel for "no hit" object ids; the reference flags invalid hits with
 # obj_id > 10000 (radar_algorithms.cpp:29, RadarCPU.cpp:252).
@@ -245,12 +250,43 @@ class Scene:
         )
         return Scene(verts, obj_ids, names, chunk_size)
 
-    def host_arrays(self) -> SceneHost:
+    def host_arrays(self, cache: Optional[bool] = None) -> SceneHost:
         """Pad, SAH-order and precompute planes + chunk AABBs — the NumPy
         path of the reference's Scene.device_arrays (geom/scene.py:559-610),
-        without the bf16 kernel tables."""
+        without the bf16 kernel tables.
+
+        cache: persist/reuse the finished build on disk, keyed by scene
+        content (geom/cache.py). None (default) = on for scenes of at
+        least 200k triangles, as the reference's device_arrays; True/False
+        force it. RADARAYS_SCENE_CACHE_DISABLE=1 turns it off."""
         if self.n_triangles == 0:
             raise ValueError("empty scene")
+        if cache is None:
+            cache = self.n_triangles >= 200_000
+        if os.environ.get("RADARAYS_SCENE_CACHE_DISABLE", "0") == "1":
+            cache = False
+        if not cache:
+            return self._build_host()
+        from radarays_ros_tpu_torch.geom import cache as scache
+
+        key = scache.scene_cache_key(self.verts, self.obj_ids,
+                                     self.chunk_size)
+        hit = scache.load_scene_host(key)
+        if hit is not None:
+            _log.info("scene build: cache hit (%s, %d triangles)", key[:12],
+                      hit.verts.shape[0])
+            return hit
+        _log.info("scene build: cache miss, building %d triangles",
+                  self.n_triangles)
+        host = self._build_host()
+        try:
+            scache.store_scene_host(key, host)
+        except OSError as e:        # disk full / read-only cache dir
+            warnings.warn(f"scene cache write failed ({e}); continuing "
+                          "without cache", stacklevel=2)
+        return host
+
+    def _build_host(self) -> SceneHost:
         verts, obj_ids = self.verts, self.obj_ids
         tc = self.chunk_size
         # pad first (far degenerate triangles cluster into their own
@@ -279,9 +315,11 @@ class Scene:
                          chunk_hi=chunks.max(axis=(1, 2)).astype(np.float32),
                          chunk_size=tc)
 
-    def to_device(self, device) -> SceneTensors:
-        """Host build + upload (see `scene_tensors`)."""
-        return scene_tensors(self.host_arrays(), device)
+    def to_device(self, device, cache: Optional[bool] = None
+                  ) -> SceneTensors:
+        """Host build (cached as `host_arrays` says) + upload (see
+        `scene_tensors`)."""
+        return scene_tensors(self.host_arrays(cache=cache), device)
 
 
 def scene_tensors(h: SceneHost, device) -> SceneTensors:

@@ -41,6 +41,16 @@ class Materials(NamedTuple):
         return Materials(col("velocity"), col("ambient"), col("diffuse"),
                          col("specular"))
 
+    @staticmethod
+    def air_only(device="cpu") -> "Materials":
+        return Materials.from_list([
+            dict(velocity=0.3, ambient=1.0, diffuse=0.0, specular=1.0),
+        ], device=device)
+
+    @property
+    def n(self) -> int:
+        return self.velocity.shape[0]
+
 
 class RadarParams(NamedTuple):
     """Dynamic simulation parameters (RadarParams.msg equivalent)."""
@@ -171,6 +181,34 @@ class RadarModelConfig:
 
     def replace(self, **kwargs) -> "RadarModelConfig":
         return dataclasses.replace(self, **kwargs)
+
+    @staticmethod
+    def from_dict(d: dict) -> "RadarModelConfig":
+        """Build from a flat dict of cfg names (preset YAML loader); unknown
+        keys are ignored and a reference engine name is mapped to the
+        port's (`port_engine`)."""
+        fields = {f.name for f in dataclasses.fields(RadarModelConfig)}
+        known = {k: v for k, v in d.items() if k in fields}
+        if "trace_engine" in known:
+            known["trace_engine"] = port_engine(known["trace_engine"])
+        return RadarModelConfig(**known)
+
+
+# the reference's trace engines that the port runs under another name
+_ENGINE_ALIASES = {"pallas3": "kernel", "culled": "sweep"}
+
+
+def port_engine(name: str) -> str:
+    """A trace_engine name of either package -> the port's engine: the
+    reference's "pallas3" (the Pallas kernels) is "kernel" here and its
+    "culled" (the plain chunk sweep) is "sweep", so presets and commands
+    written for the JAX package run unchanged."""
+    if name == "mxu":
+        raise ValueError(
+            "trace engine 'mxu' (the reference's dense matrix-unit engine) "
+            "belongs to ROADMAP M8 and is not ported yet; use 'kernel', "
+            "'sweep' or 'brute'")
+    return _ENGINE_ALIASES.get(name, name)
 
 
 def default_params(scene_n_objects: int = 1, device="cpu"

@@ -8,13 +8,21 @@ m_waves_start, RadarCPU.cpp:136-145); the directions are rebuilt from them
 with the current beam width every frame. New draws are made after
 `resample()`, a beam-shape change in `update_config` (the m_resample
 trigger, Radar.cpp:199-206) or a change of the sample count. Ambient noise
-is drawn anew for every frame from its own generator. The
-pose-extrapolation fallback (`extrapolate_pose`) is not ported yet:
-`simulate()` without a pose reuses the last one.
+is drawn anew for every frame from its own generator; `simulate(...,
+reseed=False)` restores that generator's state and so repeats the previous
+frame's noise (the reference's reuse of its noise key).
+
+Poses are explicit arguments, (7,) or (n_angles, 7) per azimuth for
+include_motion. A frame without a pose is the pose-failure fallback of
+Radar.cpp:102-121: with a stamp and the last two stamped poses it
+extrapolates (`extrapolate_pose`), else it reuses the last pose.
+`verbose_timing` fences and prints every frame's wall time, as the
+reference engines do (RadarCPU.cpp:550-553).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
@@ -31,8 +39,12 @@ from radarays_ros_tpu_torch.wave.cone import sample_cone_draws
 class Radar:
     def __init__(self, scene: Scene, params: Optional[RadarParams] = None,
                  cfg: Optional[RadarModelConfig] = None, seed: int = 0,
-                 device="cpu"):
+                 device="cpu", verbose_timing: bool = False):
+        from radarays_ros_tpu_torch.utils.profiling import StageTimer
+
         self.device = torch.device(device)
+        self.timer = StageTimer(enabled=verbose_timing)
+        self.verbose_timing = verbose_timing
         self.scene = scene
         self._scene_tensors = scene.to_device(self.device)
         if params is None:
@@ -42,8 +54,12 @@ class Radar:
         self.cfg = cfg or RadarModelConfig()
         self._cone_gen = torch.Generator(self.device).manual_seed(2 * seed)
         self._noise_gen = torch.Generator(self.device).manual_seed(2 * seed + 1)
+        # the noise generator's state before the last frame's draw
+        self._noise_state = self._noise_gen.get_state()
         self._cone_draws = None
         self._last_pose = identity_pose()
+        # last two (stamp, pose) pairs for the extrapolation fallback
+        self._pose_history: list[tuple[float, np.ndarray]] = []
         self._auto_opaque()
         self._bake_aux()
 
@@ -104,22 +120,64 @@ class Radar:
 
     # ------------------------------------------------------------ simulate
 
-    def simulate(self, pose=None) -> FrameResult:
+    def extrapolate_pose(self, stamp: Optional[float]) -> np.ndarray:
+        """Pose-failure fallback (Radar.cpp:102-121 reuses the last cached
+        pose). With the last two stamped poses cached, the translation is
+        extrapolated linearly and the rotation slerp-extrapolated to
+        `stamp`; with fewer, or no stamp, the last pose verbatim."""
+        if stamp is not None and len(self._pose_history) == 2:
+            (s0, p0), (s1, p1) = self._pose_history
+            if s1 > s0:
+                from radarays_ros_tpu_torch.io.trajectory import _slerp
+
+                a = (float(stamp) - s0) / (s1 - s0)
+                t = p0[0:3] + (p1[0:3] - p0[0:3]) * np.float32(a)
+                q = _slerp(p0[3:7].astype(np.float64),
+                           p1[3:7].astype(np.float64), a)
+                return np.concatenate([t, q.astype(np.float32)])
+        return self._last_pose
+
+    def simulate(self, pose=None, *, stamp: Optional[float] = None,
+                 reseed: bool = True) -> FrameResult:
         """One frame at a (7,) [t, q_xyzw] pose or (n_angles, 7) per-azimuth
-        poses; None reuses the last pose."""
+        poses; None is the fallback of `extrapolate_pose` (with `stamp`) or
+        the last pose. A stamp given with a (7,) pose is kept for later
+        extrapolation. reseed=False repeats the previous frame's noise."""
         if pose is None:
-            pose = self._last_pose
+            pose = self.extrapolate_pose(stamp)
+        elif stamp is not None:
+            p = np.asarray(pose, np.float32)
+            if p.ndim == 1:
+                self._pose_history.append((float(stamp), p.copy()))
+                del self._pose_history[:-2]
         self._last_pose = np.asarray(pose, np.float32)
+        if reseed:
+            self._noise_state = self._noise_gen.get_state()
+        else:
+            self._noise_gen.set_state(self._noise_state)
         cfg = self.cfg
         if self._cone_draws is None \
                 or self._cone_draws[0].shape[0] != cfg.n_samples:
             self._cone_draws = sample_cone_draws(
                 self._cone_gen, cfg.n_samples, cfg.beam_sample_dist)
-        return simulate_frame(self._scene_tensors, self.params, cfg,
-                              torch.as_tensor(self._last_pose),
-                              cone_draws=self._cone_draws,
-                              generator=self._noise_gen)
+        t0 = time.perf_counter()
+        res = simulate_frame(self._scene_tensors, self.params, cfg,
+                             torch.as_tensor(self._last_pose),
+                             cone_draws=self._cone_draws,
+                             generator=self._noise_gen)
+        if self.verbose_timing:
+            # the per-frame print of the reference engines
+            # (RadarCPU.cpp:550-553); fenced, so only when asked for
+            if res.image_u8.is_cuda:
+                torch.cuda.synchronize(res.image_u8.device)
+            dt = time.perf_counter() - t0
+            self.timer.add("frame", dt)
+            n = self.timer.counts["frame"]
+            print(f"[radar] {dt * 1e3:8.2f} ms (avg "
+                  f"{self.timer.totals['frame'] / n * 1e3:.2f} ms over {n} "
+                  "frames)")
+        return res
 
-    def simulate_image(self, pose=None) -> np.ndarray:
+    def simulate_image(self, pose=None, **kwargs) -> np.ndarray:
         """uint8 (n_cells, n_angles) numpy polar image."""
-        return self.simulate(pose).image_u8.cpu().numpy()
+        return self.simulate(pose, **kwargs).image_u8.cpu().numpy()

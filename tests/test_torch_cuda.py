@@ -229,3 +229,31 @@ def test_frame_gradient_through_kernels_equals_plain(small_scene, dev):
     assert torch.isfinite(gk).all() and gk.abs().max() > 0
     torch.testing.assert_close(gk, gp, rtol=0,
                                atol=1e-5 * float(gp.abs().max()))
+
+
+@pytest.mark.parametrize("mode", ["single", "fan"])
+def test_debug_rays_through_kernels_equal_sweep(scene, dev, mode):
+    """viz.rays.trace_debug_rays on the card: a one-ray shot (4 bounces:
+    1, 2, 4, 8 rays) and a 360-ray fan each run the prep and K1 on one
+    partly filled 2048-ray block, and give the segments of the plain sweep
+    exactly."""
+    from radarays_ros_tpu_torch.sim.config import (Materials,
+                                                   RadarModelConfig,
+                                                   RadarParams)
+    from radarays_ros_tpu_torch.utils.transforms import make_pose
+    from radarays_ros_tpu_torch.viz.rays import trace_debug_rays
+
+    n_obj = int(scene.obj_ids.max()) + 1
+    params = RadarParams.make(Materials.from_list([
+        dict(velocity=0.3, ambient=1.0, diffuse=0.0, specular=1.0),
+        dict(velocity=0.1, ambient=0.5, diffuse=0.4, specular=60.0)],
+        device=dev), np.ones(n_obj, np.int32), 8.0)
+    pose = make_pose([0.5, 0.5, 2.0])
+    kw = dict(yaw=0.2, n_bounces=4, mode=mode, n_fan=360)
+    n0 = CT.sweep.launches
+    got = trace_debug_rays(scene, params, RadarModelConfig(
+        trace_engine="kernel"), pose, **kw)
+    assert CT.sweep.launches == n0 + 4
+    want = trace_debug_rays(scene, params, RadarModelConfig(
+        trace_engine="sweep"), pose, **kw)
+    assert got == want and len(got["segments"]) > 0
