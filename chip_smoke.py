@@ -18,15 +18,25 @@ Phases (one line of figures each; any failure raises and exits non-zero):
      object mismatches), and a 4096-ray subset vs the brute oracle;
   5. frames: KAIST preset over make_urban_scene(83000, 300, seed=7) in
      batches of 4 — throughput with CUDA events, the launch count of every
-     kernel over the timed run, each kernel vs its plain version at the
-     batch's first-bounce shapes, and one frame rendered through the
-     kernels and through the plain versions under the frame contract of
+     kernel over the timed run; then the batch's bounces one by one through
+     the pipeline's _bounce, the rays in its ray-major order, and on each
+     bounce's rays and budgets K3, K2 and K1 against their plain versions:
+     one line per bounce with the valid share and hit rate of the lanes,
+     the ranked chunks (nvisit mean and max), K1's visits as the plain
+     version's loop counts them (per 32-lane group, per 128-lane CTA, per
+     block), the visits the lanes need (per lane, the ranked entries of its
+     block <= min(best_t, t_last) at the end), the chunks each lane keeps
+     itself (its own slab test, entry <= min(best_t, t_last)), and each
+     kernel's ms, plain ms, bitwise check and bound; K5 against its plain
+     version on the
+     batch's signals; and one frame rendered through the kernels and
+     through the plain versions under the frame contract of
      tests/test_oracle.py:70-87;
   6. frames: the same preset over the 10k companion scene
      make_urban_scene(800, 300, seed=7) (40 chunks: the flat prep K4, not
-     K2/K3) — throughput, launch counts (K4, K1, K5 > 0; K2, K3 = 0), K4 vs
-     its plain version at the first-bounce shapes, and one frame through
-     the kernels and through the plain versions;
+     K2/K3) — throughput, launch counts (K4, K1, K5 > 0; K2, K3 = 0), the
+     per-bounce lines for K4 and K1, and one frame through the kernels and
+     through the plain versions;
   7. the fit (benchmarks/opti_scale.py at the KAIST image size): the
      refraction tree (opaque fast path off), 2 reflections, scene
      make_urban_scene(200, 150, seed=11), 3 frames on a circular
@@ -54,10 +64,20 @@ Phases (one line of figures each; any failure raises and exits non-zero):
      e. `eval` stamp-synced against 8b's frames, `render` of one frame, and
         `optimize` (10 gradient steps, slot 1) on the 10k scene's PLY: a
         finite loss, a checkpoint, and an --out-config read back.
-The last three lines of stdout are the kernel table as JSON (each row's
-launches from the timed run of the path that measured it: K1, K2, K3, K5 in
-phase 5, K4 in phase 6), the card's name and power limit as nvidia-smi
-prints them, and the result JSON. Details also go to
+A kernel's bound is the larger of its operations over PEAK_OPS (the
+published f32 rate) and its bytes over PEAK_BYTES, counting each input
+byte once and the work these inputs need: K1, for each lane, the chunks
+its own slab test keeps with an entry <= min(best_t, t_last) at the end,
+x chunk size x 56 operations, and the coefficients of the distinct chunks
+some lane needs; K2 the slab tests under the set coarse bits (K3 every
+supergroup, K4 every box) x 20; K5 2 operations per tap and cell.
+The last three lines of stdout are the kernel table as JSON, the card's name
+and power limit as nvidia-smi prints them, and the result JSON. Each row of
+the table: its launches over the timed run of the path that measured it
+(K1, K2, K3, K5 in phase 5, K4 in phase 6) and per batch; ms, plain_ms and
+bound_ms per launch averaged over a batch's launches, ms_by_bounce; the
+largest error; bound_by; library_ms (null: no single PyTorch call computes
+these functions) with a library_note saying why. Details also go to
 chiprun_out/chip_smoke.json.
 """
 
@@ -159,18 +179,60 @@ def fan(n_rays: int, device):
     return (torch.from_numpy(o).to(device), torch.from_numpy(d).to(device))
 
 
+# The card's published peaks for the bounds (NVIDIA's H100 SXM data sheet,
+# at a 700 W power limit): 67 TFLOP/s in f32 outside the tensor cores, and
+# the HBM rate. Operations are counted as separate multiplies and adds. The
+# kernels' -fmad=false build issues each as an instruction of its own, so
+# they can reach at most half this rate; that is their choice (bit-equality
+# with the plain versions), not the function's, and the bound ignores it.
+PEAK_OPS = 67e12
+PEAK_BYTES = 3.35e12
+OPS_PAIR = 56        # K1: one (ray, triangle) test, sweep.cu's inner loop
+OPS_SLAB = 20        # K2/K3/K4: one (lane, box) slab test, prep.cu:slab_keep
+LIBRARY_NOTE = {
+    "sweep": "no PyTorch call computes a ranked nearest-hit sweep with "
+             "early termination",
+    "prep_hier": "no PyTorch call computes slab entries under a coarse "
+                 "bitmap (the plain version is many ops)",
+    "coarse_words": "no PyTorch call computes packed per-tile slab-overlap "
+                    "bits",
+    "prep_flat": "no PyTorch call computes per-block slab entries and lane "
+                 "t_last in one call",
+    "bin": "index_add_ would bin without the 35 fused denoise taps; the "
+           "fused function has no single PyTorch call"}
+
+
+def bound(ops: float, nbytes: float) -> dict:
+    """The least time for `ops` operations and `nbytes` bytes on the card:
+    the larger of ops / PEAK_OPS and bytes / PEAK_BYTES, in ms."""
+    t_ops, t_bytes = ops / PEAK_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                ops=float(ops), bytes=float(nbytes))
+
+
+def popcount(words):
+    """Set bits per row of an int32 word array (rows, n_words)."""
+    import torch
+
+    shifts = torch.arange(32, device=words.device, dtype=torch.int32)
+    return ((words[..., None] >> shifts) & 1).sum(dim=(-1, -2))
+
+
 def kernels_vs_plain(st, o, d, bud, rb: int, reps: int) -> dict:
     """The culling prep (K3 and K2, or K4 below the hierarchical threshold)
     and K1 against their plain versions on one ray set; returns per-kernel
-    {max_abs_err, bitwise, ms, plain_ms}."""
+    {max_abs_err, bitwise, ms, plain_ms, bound_ms, bound_by, ...}."""
     import torch
 
     from radarays_ros_tpu_torch.trace import cuda_trace as CT
 
     o, d, inv_d, bud, lo, hi, C2 = CT._prep_inputs(st, o, d, bud,
                                                     ray_block=rb, group=1)
+    Rp, Cp = o.shape[0], lo.shape[0]
+    ray_bytes = Rp * (12 + 12 + 4)              # o, 1/d, budget
     out = {}
-    if lo.shape[0] % CT._SG == 0 and lo.shape[0] // CT._SG >= 8:
+    if Cp % CT._SG == 0 and Cp // CT._SG >= 8:
         rbt = next(r for r in (1024, 512, 256, 128) if rb % r == 0)
         slo, shi = CT._coarse_boxes(lo, hi)
         w_k = CT.coarse_words(slo, shi, o, inv_d, bud, 1000.0, rbt)
@@ -182,31 +244,74 @@ def kernels_vs_plain(st, o, d, bud, rb: int, reps: int) -> dict:
             ms=cuda_ms(lambda: CT.coarse_words(slo, shi, o, inv_d, bud,
                                                1000.0, rbt), reps),
             plain_ms=cuda_ms(lambda: CT._coarse_words_plain(
-                slo, shi, o, inv_d, bud, 1000.0, rbt), max(1, reps // 5)))
+                slo, shi, o, inv_d, bud, 1000.0, rbt), max(1, reps // 5)),
+            **bound(Rp * slo.shape[0] * OPS_SLAB,
+                    ray_bytes + slo.shape[0] * 24 + w_k.numel() * 4))
         name, args = "prep_hier", (w_k, lo, hi, o, inv_d, bud, 1000.0, rb,
                                    rbt)
         e_k, t_k = CT.prep_hier(*args)
         e_p, t_p = CT._prep_plain(*args[1:], words=w_k)
         kernel, plain = CT.prep_hier, lambda: CT._prep_plain(*args[1:],
                                                              words=w_k)
+        set_bits = popcount(w_k)                                 # (G,)
+        tests = int(set_bits.sum()) * CT._SG * rbt
+        extra = dict(set_bits_per_tile_mean=float(set_bits.float().mean()),
+                     set_bits_per_tile_max=int(set_bits.max()),
+                     supergroups=int(slo.shape[0]))
+        in_bytes = ray_bytes + Cp * 24 + w_k.numel() * 4
     else:
         rbt = next(r for r in (256, 512, 128) if rb % r == 0)
         name, args = "prep_flat", (lo, hi, o, inv_d, bud, 1000.0, rb, rbt)
         e_k, t_k = CT.prep_flat(*args)
         e_p, t_p = CT._prep_plain(*args)
         kernel, plain = CT.prep_flat, lambda: CT._prep_plain(*args)
+        tests, extra = Rp * Cp, {}
+        in_bytes = ray_bytes + Cp * 24
     err = max(max_abs(e_k, e_p), max_abs(t_k, t_p))
     bitwise = bool(torch.equal(e_k, e_p) and torch.equal(t_k, t_p))
     check(bitwise, f"{name}: not bitwise (max abs error {err})")
-    out[name] = dict(max_abs_err=err, bitwise=bitwise, boxes=int(lo.shape[0]),
+    out[name] = dict(max_abs_err=err, bitwise=bitwise, boxes=Cp,
+                     slab_tests=tests, **extra,
                      ms=cuda_ms(lambda: kernel(*args), reps),
-                     plain_ms=cuda_ms(plain, max(1, reps // 5)))
-    out["sweep"] = sweep_vs_plain(st, e_k, C2, o, d, t_k, reps)
+                     plain_ms=cuda_ms(plain, max(1, reps // 5)),
+                     **bound(tests * OPS_SLAB,
+                             in_bytes + e_k.numel() * 4 + Rp * 4))
+    out["sweep"] = sweep_vs_plain(st, e_k, C2, o, d, t_k, bud, reps,
+                                  boxes=(lo[:C2], hi[:C2], inv_d))
     return out
 
 
-def sweep_vs_plain(st, e_k, C2: int, o, d, t_k, reps: int) -> dict:
-    """K1 against its plain version after the prep's entries e_k."""
+def lane_kept(lo, hi, o, inv_d, cap, lim):
+    """For each lane, the chunks its own slab test keeps (as the prep tests
+    them) with an entry <= lim: the visits that lane needs to prove its
+    nearest hit. Returns the counts (R,) and which chunks some lane needs
+    (C,) bool."""
+    import torch
+
+    from radarays_ros_tpu_torch.trace import cuda_trace as CT
+
+    R, C = o.shape[0], lo.shape[0]
+    n = torch.empty(R, dtype=torch.int64, device=o.device)
+    seen = torch.zeros(C, dtype=torch.bool, device=o.device)
+    step = max(1, (1 << 24) // C)
+    for r0 in range(0, R, step):
+        sl = slice(r0, r0 + step)
+        keep, tn0 = CT._slab_keep(lo[None], hi[None], o[sl, None],
+                                  inv_d[sl, None], cap[sl, None])
+        need = keep & (tn0 <= lim[sl, None])
+        n[sl] = need.sum(dim=1)
+        seen |= need.any(dim=0)
+    return n, seen
+
+
+def sweep_vs_plain(st, e_k, C2: int, o, d, t_k, bud, reps: int,
+                   boxes) -> dict:
+    """K1 against its plain version after the prep's entries e_k, with the
+    visits the plain version's loop made, the visits the lanes need by
+    their block's ranking (per lane, the ranked entries of its block <=
+    min(best_t, t_last) at the end), and the chunks each lane keeps itself
+    (lane_kept on boxes = (lo, hi, inv_d)), from which the bound is
+    counted."""
     import torch
 
     from radarays_ros_tpu_torch.trace import cuda_trace as CT
@@ -215,24 +320,69 @@ def sweep_vs_plain(st, e_k, C2: int, o, d, t_k, reps: int) -> dict:
     args = (nvisit, order, entry, o, d, t_k, st.coef, st.fetch)
     kw = dict(tc=st.chunk_size, group=1, t_min=0.0)
     bt_k, bi_k, rows_k = CT.sweep(*args, **kw)
-    bt_p, bi_p, rows_p = CT._sweep_plain(*args, **kw)
+    bt_p, bi_p, rows_p, visits = CT._sweep_plain(*args, **kw,
+                                                 with_visits=True)
     n_win = int((bi_k != bi_p).sum())
     check(n_win == 0, f"K1 sweep: {n_win} winners differ")
     err = max(max_abs(bt_k, bt_p), max_abs(rows_k, rows_p))
     check(err <= 1e-6 * 1000.0, f"K1 sweep: max abs error {err}")
+    B, RB = nvisit.shape[0], o.shape[0] // nvisit.shape[0]
+    lim = torch.minimum(bt_p, t_k).view(B, RB)
+    needed = torch.minimum(
+        torch.searchsorted(entry[:, :-1].contiguous(), lim, right=True),
+        nvisit[:, None].long())                                   # (B, RB)
+    kept, seen = lane_kept(*boxes[:2], o, boxes[2],
+                           torch.clamp_max(bud, 1000.0), lim.view(-1))
+    block_visits = visits.amax(dim=1)                             # (B,)
+    cta = visits.view(B, -1, 128 // 32).amax(dim=2)       # K1's CTAs
+    lanes = int((bud > 0).sum())
+    tri_bytes = st.chunk_size * 22 * 4
+    hit = (bud > 0) & (bt_p <= torch.clamp_max(bud, 1000.0))
     return dict(
         max_abs_err=err, bitwise=bool(torch.equal(bt_k, bt_p)
                                       and torch.equal(rows_k, rows_p)),
-        winners_differ=n_win, hit_rate=float(torch.isfinite(bt_k).float()
-                                             .mean()),
-        ranked_chunks_max=int(nvisit.max()),
-        ranked_chunks_mean=float(nvisit.float()
-                                 .mean()),
+        winners_differ=n_win,
+        hit_rate=float(hit.float().sum() / max(lanes, 1)),
+        live_lanes=lanes, ranked_chunks_max=int(nvisit.max()),
+        ranked_chunks_mean=float(nvisit.float().mean()),
+        visits_block_mean=float(block_visits.float().mean()),
+        visits_block_max=int(block_visits.max()),
+        visits_cta128_mean=float(cta.float().mean()),
+        visits_group32_mean=float(visits.float().mean()),
+        visits_needed_lane_mean=float(needed.float().mean()),
+        visits_needed_lane_max=int(needed.max()),
+        chunks_kept_lane_mean=float(kept.float().mean()),
+        chunks_kept_lane_max=int(kept.max()),
+        distinct_chunks_needed=int(seen.sum()),
         ms=cuda_ms(lambda: CT.sweep(*args, **kw), reps),
-        plain_ms=cuda_ms(lambda: CT._sweep_plain(*args, **kw), 1))
+        plain_ms=cuda_ms(lambda: CT._sweep_plain(*args, **kw), 1),
+        **bound(float(kept.sum()) * st.chunk_size * OPS_PAIR,
+                int(seen.sum()) * tri_bytes + o.shape[0] * (12 + 12 + 4)
+                + order.numel() * 8 + o.shape[0] * (4 + 4 + 64)))
+
+
+def per_launch(rows: list) -> dict:
+    """One kernel's figures over the bounces of a batch (one launch each):
+    ms, plain_ms and bound_ms per launch averaged over the bounces, beside
+    their lists by bounce; the largest error; bitwise on every bounce."""
+    n = len(rows)
+    ops, nbytes = sum(r["ops"] for r in rows), sum(r["bytes"] for r in rows)
+    out = dict(
+        bitwise=all(r["bitwise"] for r in rows),
+        max_abs_err=max(r["max_abs_err"] for r in rows),
+        ms=sum(r["ms"] for r in rows) / n,
+        ms_by_bounce=[r["ms"] for r in rows],
+        plain_ms=sum(r["plain_ms"] for r in rows) / n,
+        plain_ms_by_bounce=[r["plain_ms"] for r in rows],
+        **bound(ops / n, nbytes / n),
+        bound_ms_by_bounce=[r["bound_ms"] for r in rows])
+    out["by_bounce"] = rows
+    return out
 
 
 def bin_vs_plain(cell, s, weights, mode, n_cells: int, reps: int) -> dict:
+    """K5 against its plain version; its bound counts the (cell, strength)
+    inputs and the f32 image once, and 2 operations per tap and cell."""
     import torch
 
     from radarays_ros_tpu_torch.image.cuda_draw import _bin_plain, bin_signals
@@ -242,9 +392,13 @@ def bin_vs_plain(cell, s, weights, mode, n_cells: int, reps: int) -> dict:
     want = _bin_plain(cell, s, **kw)
     err = max_abs(got, want)
     check(err <= 1e-6 * float(want.abs().max()), f"K5 bin: error {err}")
+    taps = 1 if weights is None else len(weights)
+    rows = cell.shape[0]
     return dict(max_abs_err=err, bitwise=bool(torch.equal(got, want)),
                 ms=cuda_ms(lambda: bin_signals(cell, s, **kw), reps),
-                plain_ms=cuda_ms(lambda: _bin_plain(cell, s, **kw), 2))
+                plain_ms=cuda_ms(lambda: _bin_plain(cell, s, **kw), 2),
+                **bound(2 * taps * rows * n_cells,
+                        cell.numel() * 8 + rows * n_cells * 4))
 
 
 def kaist_setup(device, n_buildings: int = 83000):
@@ -381,20 +535,47 @@ def frames_phase(tag: str, st, params, cfg, dev, expect_zero=(),
     log(f"[{tag} frames] {json.dumps(frames)}")
     del warm, res
 
-    # kernels vs plain at the path's first-bounce shapes
+    # kernels vs plain on each bounce's rays: the batch's bounces one by
+    # one through the pipeline's _bounce, the rays in its ray-major order
     local = torch.stack([sample_cone_local(
         gen, params.beam_width, cfg.n_samples, cfg.beam_sample_dist,
         cfg.beam_sample_dist_normal_p_in_cone) for _ in range(BATCH)])
-    waves, sensor_pos = P.start_waves(params, cfg, poses, local_dirs=local,
-                                      device=dev)
-    budget = P.trace_budget(cfg, waves)
+    waves0, sensor_pos = P.start_waves(params, cfg, poses, local_dirs=local,
+                                       device=dev)
 
     def rm(x):
         return x.movedim(0, 2).reshape(-1, *x.shape[3:]).contiguous()
 
-    mk = kernels_vs_plain(st, rm(waves.orig), rm(waves.dir), rm(budget),
-                          rb=cfg.trace_ray_block, reps=10)
-    times, strengths, valid = P.collect_signals(st, params, cfg, waves,
+    by_bounce = []
+    waves = waves0
+    for pass_id in range(cfg.n_reflections):
+        budget = P.trace_budget(cfg, waves)
+        mb = kernels_vs_plain(st, rm(waves.orig), rm(waves.dir), rm(budget),
+                              rb=cfg.trace_ray_block, reps=10)
+        s = mb["sweep"]
+        line = dict(
+            bounce=pass_id + 1, rays=int(waves.valid.numel()),
+            valid_share=float(waves.valid.float().mean()),
+            hit_rate=s["hit_rate"], nvisit_mean=s["ranked_chunks_mean"],
+            nvisit_max=s["ranked_chunks_max"],
+            visits_block_mean=s["visits_block_mean"],
+            visits_block_max=s["visits_block_max"],
+            visits_cta128_mean=s["visits_cta128_mean"],
+            visits_group32_mean=s["visits_group32_mean"],
+            visits_needed_lane_mean=s["visits_needed_lane_mean"],
+            visits_needed_lane_max=s["visits_needed_lane_max"],
+            chunks_kept_lane_mean=s["chunks_kept_lane_mean"],
+            chunks_kept_lane_max=s["chunks_kept_lane_max"],
+            **{k: {kk: v[kk] for kk in ("bitwise", "ms", "plain_ms",
+                                        "bound_ms", "bound_by")}
+               for k, v in mb.items()})
+        log(f"[{tag} bounce {pass_id + 1}] {json.dumps(line)}")
+        by_bounce.append(mb)
+        with torch.no_grad():
+            waves, _ = P._bounce(cfg, params, st, waves, sensor_pos, pass_id)
+    mk = {k: per_launch([b[k] for b in by_bounce]) for k in by_bounce[0]}
+
+    times, strengths, valid = P.collect_signals(st, params, cfg, waves0,
                                                 sensor_pos)
     N, A = times.shape[:2]
     c = bin_cells(times.reshape(N * A, -1), cfg.resolution)
@@ -404,11 +585,12 @@ def frames_phase(tag: str, st, params, cfg, dev, expect_zero=(),
         torch.where(ok, c, cfg.n_cells).to(torch.int32).contiguous(),
         torch.where(ok, strengths.reshape(N * A, -1), 0.0).contiguous(),
         w, mode, cfg.n_cells, reps=20)
-    log(f"[{tag} kernels vs plain, first-bounce shapes: "
-        f"{int(np.prod(waves.batch_shape))} rays, {N * A} rows] "
-        + json.dumps({k: {kk: v[kk] for kk in ("bitwise", "max_abs_err",
-                                              "ms", "plain_ms")}
-                      for k, v in mk.items()}))
+    mk["bin"]["ms_by_bounce"] = [mk["bin"]["ms"]]     # one launch a batch
+    log(f"[{tag} kernels vs plain, per launch over the bounces: "
+        f"{int(np.prod(waves0.batch_shape))} rays, {N * A} rows] "
+        + json.dumps({k: {kk: v[kk] for kk in (
+            "bitwise", "max_abs_err", "ms", "ms_by_bounce", "plain_ms",
+            "bound_ms", "bound_by")} for k, v in mk.items()}))
 
     # one frame through the kernels and through the plain versions
     pose = poses[0]
@@ -1053,11 +1235,18 @@ def main() -> int:
     # 1M-triangle frames (phase 5)
     rows = {k: (launches10, mk10) if k == "prep_flat" else (launches, mk)
             for k in source}
-    table = [dict(name=k, route="cuda", source=source[k],
-                  replaces=replaces[k], launches=rows[k][0][k],
-                  max_abs_err=rows[k][1][k]["max_abs_err"],
-                  ms=rows[k][1][k]["ms"], plain_ms=rows[k][1][k]["plain_ms"])
-             for k in source]
+    # ms, plain_ms and bound_ms are per launch, averaged over the launches
+    # of one batch (K1-K4: one a bounce; K5: one a batch)
+    table = []
+    for k in source:
+        n, m = rows[k][0][k], rows[k][1][k]
+        table.append(dict(
+            name=k, route="cuda", source=source[k], replaces=replaces[k],
+            launches=n, launches_per_batch=n / TIMED_BATCHES,
+            max_abs_err=m["max_abs_err"], ms=m["ms"],
+            ms_by_bounce=m["ms_by_bounce"], plain_ms=m["plain_ms"],
+            bound_ms=m["bound_ms"], bound_by=m["bound_by"],
+            library_ms=None, library_note=LIBRARY_NOTE[k]))
     details["kernels"] = table
     details["total_s"] = time.perf_counter() - t_main
     log(f"[total] {details['total_s']:.1f} s from phase 1 to the table")

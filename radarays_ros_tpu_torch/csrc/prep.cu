@@ -15,15 +15,21 @@
 //    sign bit). Grid (tiles, words); each thread holds a 32-bit mask of its
 //    lane's keeps, ORed across the block with warp reductions and a shared
 //    atomicOr.
-//  * K2 rr_prep_hier: for each set bit of a tile's words, slab-test that
-//    supergroup's 32 chunks per lane. A chunk's block entry is the min over
-//    the lanes that keep it of tn0 (+inf when none): a warp min, a shared
-//    atomicMin, then one global atomicMin per chunk into the block's entry
-//    row, which the caller pre-fills with +inf. Entries are >= +0 or +inf,
-//    so the int order of their bits is the float order and the min is exact
-//    in any order (tn0 is canonicalized to +0, never -0). t_last of a lane
-//    is the max tn0 over the chunks it keeps (-inf when none). Results do
-//    not depend on the tile width.
+//  * K2 rr_prep_hier: the (ray tile, set supergroup) pairs run in
+//    parallel across the card, one CTA each (256 threads, up to 4 lanes a
+//    thread), each slab-testing its lanes against the supergroup's 32 chunk
+//    boxes (staged in shared memory); a CTA whose coarse bit is unset exits
+//    at once. A chunk's block entry is the min over the lanes that keep it
+//    of tn0 (+inf when none): a thread min over its lanes, a warp min, a
+//    shared atomicMin, then one global atomicMin per chunk into the block's
+//    entry row, which the caller pre-fills with +inf. Entries are >= +0 or
+//    +inf, so the int order of their bits is the float order and the min is
+//    exact in any order (tn0 is canonicalized to +0, never -0). t_last of a
+//    lane is the max tn0 over the chunks it keeps (-inf when none), folded
+//    over the supergroups by a global atomicMax on the int bits into a row
+//    the caller pre-fills with -inf: its bits are negative and every tn0's
+//    are >= 0, so that max too is exact in any order. Results do not depend
+//    on the tile width or on the order the CTAs run in.
 //  * K4 rr_prep_flat: every lane of a tile against every box, with no
 //    coarse gate. The box table (at most a few hundred boxes below the
 //    hierarchical threshold) is staged in shared memory once per block;
@@ -33,11 +39,14 @@
 //    The reference writes per-tile partials and takes their min in XLA
 //    (:741); the atomic min gives the same values.
 //
-// What bounds it on the card: per tested (lane, box) pair 6 sub+mul and a
-// min/max chain; boxes are read by all lanes of a block from L1/L2 or
-// shared memory (a few KB), rays once. The coarse pass gates the fine pass
-// to the few supergroups a tile can reach, as on the TPU; the flat prep
-// runs only where the whole table is small.
+// What bounds it on the card: f32 operations, ~20 per tested (lane, box)
+// pair (6 sub+mul, the min/max chain, the keep test); rays, boxes and the
+// outputs are a few MB. The coarse pass gates K2 to the supergroups a tile
+// can reach, as on the TPU, so K2's work is (set bits x 32 x lanes) tests.
+// The earlier K2 ran one CTA of 1024 lanes per tile (80 CTAs on the main
+// path, on 80 of 132 SMs) looping serially over the set bits with two
+// block barriers each; the pairs now fill the card. The flat prep K4 runs
+// only where the whole table is small.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -101,54 +110,68 @@ __global__ void coarse_words_kernel(const float* __restrict__ slo,
   if (tid == 0) words[(long long)g * n_words + w] = (int)acc;
 }
 
-// K2: grid (n_tiles), block = rbt threads (one lane each)
-__global__ void prep_hier_kernel(const int* __restrict__ words, int n_words,
-                                 const float* __restrict__ lo,
-                                 const float* __restrict__ hi, int cp,
-                                 const float* __restrict__ o,
-                                 const float* __restrict__ idv,
-                                 const float* __restrict__ bud, int rbt,
-                                 int tiles_per_block, float t_max,
-                                 float* __restrict__ entry,
-                                 float* __restrict__ t_last) {
+// K2: grid (n_tiles, n_super): one CTA per (ray tile, supergroup) pair,
+// which exits at once when the tile's coarse bit for the supergroup is
+// unset; nt = rbt / RPT threads, RPT lanes each
+template <int RPT>
+__global__ void __launch_bounds__(256)
+prep_hier_kernel(const int* __restrict__ words, int n_words,
+                 const float* __restrict__ lo, const float* __restrict__ hi,
+                 int cp, const float* __restrict__ o,
+                 const float* __restrict__ idv, const float* __restrict__ bud,
+                 int rbt, int tiles_per_block, float t_max,
+                 float* __restrict__ entry, float* __restrict__ t_last) {
   __shared__ int sm_entry[32];
-  const int g = blockIdx.x, tid = threadIdx.x;
+  __shared__ float sm_box[2 * 3 * 32];   // the supergroup's 32 lo, then hi
+  const int g = blockIdx.x, s = blockIdx.y, tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const unsigned int word =
+      (unsigned int)words[(long long)g * n_words + (s >> 5)];
+  if (!((word >> (s & 31)) & 1u)) return;     // CTA-uniform
   const int inf_bits = __float_as_int(CUDART_INF_F);
-  const long long r = (long long)g * rbt + tid;
-  const Ray ray = load_ray(o, idv, bud, r, t_max);
-  int* entry_row = reinterpret_cast<int*>(entry) +
-                   (long long)(g / tiles_per_block) * cp;
   if (tid < 32) sm_entry[tid] = inf_bits;
-  __syncthreads();
-  float tl = -CUDART_INF_F;
-  for (int w = 0; w < n_words; ++w) {
-    // the word is the same for every thread of the block: uniform loop
-    unsigned int bits = (unsigned int)words[(long long)g * n_words + w];
-    while (bits) {
-      const int s = w * 32 + (__ffs(bits) - 1);
-      bits &= bits - 1u;
-      for (int c = 0; c < 32; ++c) {
-        const int chunk = s * 32 + c;
-        float tn0;
-        const bool keep =
-            slab_keep(lo + 3 * chunk, hi + 3 * chunk, ray, &tn0);
-        if (keep) tl = fmaxf(tl, tn0);
-        float m = keep ? tn0 : CUDART_INF_F;
-        for (int off = 16; off > 0; off >>= 1)
-          m = fminf(m, __shfl_xor_sync(0xffffffffu, m, off));
-        if ((tid & 31) == 0 && m < CUDART_INF_F)
-          atomicMin(&sm_entry[c], __float_as_int(m));
-      }
-      __syncthreads();
-      if (tid < 32) {
-        const int v = sm_entry[tid];
-        if (v != inf_bits) atomicMin(&entry_row[s * 32 + tid], v);
-        sm_entry[tid] = inf_bits;
-      }
-      __syncthreads();
-    }
+  if (tid < 96) {
+    sm_box[tid] = lo[(long long)s * 96 + tid];
+    sm_box[96 + tid] = hi[(long long)s * 96 + tid];
   }
-  t_last[r] = tl;
+  Ray ray[RPT];
+  float tl[RPT];
+#pragma unroll
+  for (int j = 0; j < RPT; ++j) {
+    ray[j] = load_ray(o, idv, bud, (long long)g * rbt + j * nt + tid, t_max);
+    tl[j] = -CUDART_INF_F;
+  }
+  __syncthreads();
+  for (int c = 0; c < 32; ++c) {
+    float m = CUDART_INF_F;
+#pragma unroll
+    for (int j = 0; j < RPT; ++j) {
+      float tn0;
+      if (slab_keep(sm_box + 3 * c, sm_box + 96 + 3 * c, ray[j], &tn0)) {
+        tl[j] = fmaxf(tl[j], tn0);
+        m = fminf(m, tn0);
+      }
+    }
+    for (int off = 16; off > 0; off >>= 1)
+      m = fminf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    if ((tid & 31) == 0 && m < CUDART_INF_F)
+      atomicMin(&sm_entry[c], __float_as_int(m));
+  }
+  __syncthreads();
+  if (tid < 32) {
+    const int v = sm_entry[tid];
+    int* entry_row = reinterpret_cast<int*>(entry) +
+                     (long long)(g / tiles_per_block) * cp;
+    if (v != inf_bits) atomicMin(&entry_row[s * 32 + tid], v);
+  }
+  // t_last folds in over the supergroups by an int max on the float's
+  // bits: the caller pre-fills -inf (negative bits), every tn0 is >= +0
+#pragma unroll
+  for (int j = 0; j < RPT; ++j)
+    if (tl[j] > -CUDART_INF_F)
+      atomicMax(reinterpret_cast<int*>(t_last) + (long long)g * rbt +
+                    j * nt + tid,
+                __float_as_int(tl[j]));
 }
 
 // K4: grid (n_tiles), block = rbt threads (one lane each); dynamic shared
@@ -213,21 +236,34 @@ extern "C" int rr_coarse_words(const float* slo, const float* shi,
   return (int)cudaGetLastError();
 }
 
-// words (G, n_words); lo/hi (cp, 3) chunk boxes with cp == 32 * 32 * n_words
-// or fewer boxes covered by set bits; o/idv/bud per lane; G = B * I tiles,
-// I = tiles_per_block. entry (B, cp) must be pre-filled with +inf. Outputs
-// entry (min-accumulated) and t_last (G * rbt,).
+// words (G, n_words); lo/hi (cp, 3) chunk boxes, every supergroup with a
+// set bit complete (32 * (s + 1) <= cp); o/idv/bud per lane; G = B * I
+// tiles, I = tiles_per_block. entry (B, cp) must be pre-filled with +inf
+// and t_last (G * rbt,) with -inf; both are folded into by atomics.
 extern "C" int rr_prep_hier(const int* words, int n_words, const float* lo,
                             const float* hi, int cp, const float* o,
                             const float* idv, const float* bud, int n_tiles,
                             int rbt, int tiles_per_block, float t_max,
                             float* entry, float* t_last, cudaStream_t stream) {
-  if (rbt % 32 != 0 || rbt > 1024 || tiles_per_block < 1)
+  if (rbt % 128 != 0 || rbt > 1024 || tiles_per_block < 1 || n_words > 2047)
     return (int)cudaErrorInvalidValue;
-  if (n_tiles == 0) return cudaSuccess;
-  prep_hier_kernel<<<n_tiles, rbt, 0, stream>>>(
-      words, n_words, lo, hi, cp, o, idv, bud, rbt, tiles_per_block, t_max,
-      entry, t_last);
+  if (n_tiles == 0 || n_words == 0) return cudaSuccess;
+  const int nt = rbt < 256 ? rbt : 256;
+  const dim3 grid(n_tiles, n_words * 32);
+#define RR_PREP_HIER_CASE(R)                                                \
+  case R:                                                                   \
+    prep_hier_kernel<R><<<grid, nt, 0, stream>>>(                           \
+        words, n_words, lo, hi, cp, o, idv, bud, rbt, tiles_per_block,      \
+        t_max, entry, t_last);                                              \
+    break;
+  switch (rbt / nt) {
+    RR_PREP_HIER_CASE(1)
+    RR_PREP_HIER_CASE(2)
+    RR_PREP_HIER_CASE(4)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef RR_PREP_HIER_CASE
   return (int)cudaGetLastError();
 }
 

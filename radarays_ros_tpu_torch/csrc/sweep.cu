@@ -1,51 +1,67 @@
 // Ranked chunk sweep with early termination and winner fetch (kernel K1).
 //
 // Replaces radarays_ros_tpu/trace/pallas_trace.py:_trace_kernel_v3 (the
-// Pallas TPU kernel launched at :879-920). One CUDA block per ray block:
-// the block walks its ranked supergroups front to back (order/entry from
-// the culling prep, trace/cuda_trace.py), intersects every triangle of a
-// visited chunk with every ray, keeps each ray's nearest t and winner, and
-// stops once the next ranked entry exceeds max_lanes min(best_t, t_last)
-// (the exactness argument is in the reference kernel's docstring). It then
-// fetches the winner's 16-float record by its global index.
+// Pallas TPU kernel launched at :879-920). The lanes of a ray block walk
+// the block's ranked supergroups front to back (order/entry from the
+// culling prep, trace/cuda_trace.py), intersect every triangle of a
+// visited chunk, keep each lane's nearest t and winner, and then fetch the
+// winner's 16-float record by its global index.
 //
-// What bounds it on the card: f32 arithmetic. Per (ray, triangle) the test
-// is ~30 flops on 22 coefficients; coefficients come from shared memory as
-// warp-wide broadcasts, so the inner loop issues no global loads. The TPU
-// kernel turned the test into bf16 split-exact matmuls for its matrix
-// unit; here it is plain f32 scalar code on the CUDA cores, which is the
-// exact arithmetic the plain torch version (_sweep_plain) does.
+// What bounds it on the card: f32 operations. One (ray, triangle) test is
+// ~56 multiplies and adds (the plane distance, the three edge numerators
+// and the min chain of _chunk_t), against the published 67 TFLOP/s. The
+// least work is, per lane, the chunks its own slab test keeps with an
+// entry <= min(best_t, t_last), times the chunk's triangles. The
+// -fmad=false build (kept for bit-equality with the plain version) issues
+// every multiply and add as an instruction of its own, so this kernel can
+// reach at most half of that rate.
 //
-// Design:
-//  * each visited chunk's 256 x 22 f32 coefficients (22.5 KB) are staged
-//    in shared memory once and reused by all RB rays of the block; each
-//    thread owns RPT rays (RB = 2048 -> 512 threads x 4 rays) in registers;
-//  * rows are tested in order and a ray updates only on a strict `<`, which
-//    is the reference's tie-break (earliest visited chunk, then lowest row);
-//  * termination is a block max-reduction after every visit, read only
-//    after a __syncthreads, so no thread reads it before all have finished
-//    the visit; entry[] carries a +inf sentinel after the last ranked entry;
-//  * the winner record is loaded directly by index after the sweep (a
-//    select, never an accumulation, so duplicate visits cannot change it);
-//  * every product and sum is rounded separately (__fmul_rn/__fadd_rn and
-//    the -fmad=false build), in the operation order of _sweep_plain, so
-//    the kernel and its plain version agree bit for bit.
+// Design, against what held the block-per-CTA version back:
+//  1. Occupancy and balance: each 2048-ray block is split over 16 CTAs of
+//     128 lanes (one thread a lane) that walk the SAME ranked list of their
+//     block (the block's entries are a min over its lanes, so the list does
+//     not depend on which CTA holds which lane): 640 CTAs on the main path
+//     instead of 40, all resident at once (5 an SM by shared memory), so
+//     no SM holds much more work than another (with 256 lanes a CTA, 320
+//     CTAs put 3 on some SMs and 2 on the rest).
+//  2. Termination per aligned group of 32 consecutive lanes (one warp,
+//     so every decision is warp-uniform): a group stops once the
+//     next ranked entry exceeds max over its lanes of min(best_t, t_last),
+//     and is not started when the first entry already does; a CTA stops
+//     when all its groups have. This is the reference's exactness argument
+//     (pallas_trace.py:112-120) applied per lane; the block-wide rule is
+//     the same argument at 2048 lanes. Lanes that keep no chunk (budget 0:
+//     padding and dead waves) have t_last = -inf and never hold a group.
+//  3. The division t = -so/sd is computed only where the inside test
+//     passes (the hit needs both), not for every (ray, triangle) pair; the
+//     inside tests of two rows run branch-free first, so their chains
+//     interleave, then the divisions in row order.
+//  4. Staging overlaps compute: each stage (one chunk's tc x 22 f32
+//     coefficients, contiguous, 16-byte aligned for even tc) arrives by a
+//     TMA 1-D bulk copy (cp.async.bulk) into one of two shared buffers,
+//     completing on an mbarrier; the next stage is in flight while the
+//     current one is tested. Every copy that was started is awaited before
+//     the CTA exits, early termination included.
+//  Kept: rows are tested in order and a lane updates only on a strict `<`
+//  (the reference's tie-break: earliest visited chunk, then lowest row);
+//  every product and sum is rounded separately (__fmul_rn/__fadd_rn and the
+//  -fmad=false build) in the operation order of _sweep_plain, with
+//  NaN-propagating mins, so kernel and plain version agree bit for bit; the
+//  winner record is loaded by index after the sweep (a select, never an
+//  accumulation, so duplicate visits cannot change it).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kCoef = 22;     // floats per triangle: n, c, A_0..2, B_0..2
 constexpr int kFetch = 16;    // floats per winner record
+constexpr int kLanes = 128;    // lanes (threads) per CTA
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-
-// torch.minimum semantics: NaN in either operand gives NaN
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (a < b || a != a) ? a : b;
-}
 
 // ((a0*b0 + a1*b1) + a2*b2), each op rounded
 __device__ __forceinline__ float dot3(float a0, float a1, float a2,
@@ -53,139 +69,229 @@ __device__ __forceinline__ float dot3(float a0, float a1, float a2,
   return add(add(mul(a0, b0), mul(a1, b1)), mul(a2, b2));
 }
 
-template <int RPT>
-__global__ void __launch_bounds__(512)
+// ---- mbarrier and TMA bulk copy (PTX)
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// the one arrival of a phase, announcing `bytes` of transfer
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// global -> shared, `bytes` contiguous (16-byte aligned, multiple of 16)
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+struct Lane {
+  float ox, oy, oz, dx, dy, dz, wx, wy, wz, bt, tl;
+  int bi;
+};
+
+// NaN-propagating min (PTX min.NaN, sm_80+), as torch.minimum; the sign
+// of a zero result cannot change the inside test below
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// the inside test of one (ray, triangle) pair, q = the triangle's 22
+// coefficients: min_k(N_k * sd) + eps * sd^2 >= 0 (false on NaN); sets the
+// plane terms so (signed origin distance) and sd (direction cosine)
+__device__ __forceinline__ bool inside(const float* q, const Lane& r,
+                                       float eps, float* so, float* sd) {
+  *so = add(dot3(q[0], q[1], q[2], r.ox, r.oy, r.oz), q[3]);
+  *sd = dot3(q[0], q[1], q[2], r.dx, r.dy, r.dz);
+  float pmin = 0.f;
+#pragma unroll
+  for (int e = 0; e < 3; ++e) {
+    const float* A = q + 4 + 3 * e;
+    const float* B = q + 13 + 3 * e;
+    const float bd = dot3(B[0], B[1], B[2], r.dx, r.dy, r.dz);
+    const float nk = add(add(add(bd, mul(A[0], r.wx)), mul(A[1], r.wy)),
+                         mul(A[2], r.wz));
+    const float p = mul(nk, *sd);
+    pmin = e == 0 ? p : min_nan(pmin, p);
+  }
+  return add(pmin, mul(eps, mul(*sd, *sd))) >= 0.f;
+}
+
+// every row of one staged chunk against the thread's lane. Rows are read
+// in pairs as 11 float4 (a row pair is 176 bytes, 16-byte aligned); the
+// inside tests of a pair run branch-free, then the division t = -so/sd only
+// where a test passed, rows in order
+__device__ __forceinline__ void test_chunk(const float* sc, int tc, Lane& ln,
+                                           int tri0, float t_min, float eps) {
+  const float4* s4 = reinterpret_cast<const float4*>(sc);
+  for (int row = 0; row < tc; row += 2) {
+    float q[2 * kCoef];
+#pragma unroll
+    for (int i = 0; i < 2 * kCoef / 4; ++i) {
+      const float4 v = s4[(row / 2) * (2 * kCoef / 4) + i];
+      q[4 * i] = v.x; q[4 * i + 1] = v.y; q[4 * i + 2] = v.z;
+      q[4 * i + 3] = v.w;
+    }
+    float so[2], sd[2];
+    bool in[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      in[h] = inside(q + h * kCoef, ln, eps, &so[h], &sd[h]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (in[h]) {
+        const float t = __fdiv_rn(-so[h], sd[h]);
+        if (t >= t_min && t < ln.bt) {
+          ln.bt = t;
+          ln.bi = tri0 + row + h;
+        }
+      }
+  }
+}
+
+// should the warp's group keep sweeping? its lanes' worst min(best_t,
+// t_last) against the next ranked entry (warp-uniform)
+__device__ __forceinline__ bool group_continues(const Lane& r, float e_next) {
+  float worst = fminf(r.bt, r.tl);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    worst = fmaxf(worst, __shfl_xor_sync(0xffffffffu, worst, off));
+  return !(e_next > worst);
+}
+
+// one thread per lane; the warp is the lane group
+__global__ void __launch_bounds__(kLanes)
 sweep_kernel(const int* __restrict__ nvisit, const int* __restrict__ order,
              const float* __restrict__ entry, int ce,
              const float* __restrict__ orig, const float* __restrict__ dir,
              const float* __restrict__ t_last,
              const float* __restrict__ coef, const float* __restrict__ fetch,
-             int tc, int group, float t_min, float eps,
+             int tc, int group, int ctas_per_block, float t_min, float eps,
              float* __restrict__ best_t_out, int* __restrict__ best_idx_out,
              float* __restrict__ rows_out) {
-  extern __shared__ float smem[];
-  float* sc = smem;                  // tc * kCoef staged coefficients
-  float* red = smem + tc * kCoef;    // 32 warp partials + the block result
-  const int b = blockIdx.x;
-  const int nt = blockDim.x;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int stage_floats = tc * kCoef;
+  float* buf = reinterpret_cast<float*>(smem);          // 2 stages
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + 2 * stage_floats * 4);
+  const int b = blockIdx.x / ctas_per_block;
   const int tid = threadIdx.x;
-  const long long ray0 = (long long)b * nt * RPT;
+  const long long r = (long long)blockIdx.x * blockDim.x + tid;
 
-  float ox[RPT], oy[RPT], oz[RPT], dx[RPT], dy[RPT], dz[RPT];
-  float wx[RPT], wy[RPT], wz[RPT], bt[RPT], tl[RPT];
-  int bi[RPT];
-#pragma unroll
-  for (int j = 0; j < RPT; ++j) {
-    const long long r = ray0 + tid + j * nt;
-    ox[j] = orig[3 * r]; oy[j] = orig[3 * r + 1]; oz[j] = orig[3 * r + 2];
-    dx[j] = dir[3 * r]; dy[j] = dir[3 * r + 1]; dz[j] = dir[3 * r + 2];
-    // w = o x d, the ray line's moment
-    wx[j] = __fsub_rn(mul(oy[j], dz[j]), mul(oz[j], dy[j]));
-    wy[j] = __fsub_rn(mul(oz[j], dx[j]), mul(ox[j], dz[j]));
-    wz[j] = __fsub_rn(mul(ox[j], dy[j]), mul(oy[j], dx[j]));
-    bt[j] = CUDART_INF_F;
-    bi[j] = -1;
-    tl[j] = t_last[r];
-  }
+  Lane ln;
+  ln.ox = orig[3 * r]; ln.oy = orig[3 * r + 1]; ln.oz = orig[3 * r + 2];
+  ln.dx = dir[3 * r]; ln.dy = dir[3 * r + 1]; ln.dz = dir[3 * r + 2];
+  // w = o x d, the ray line's moment
+  ln.wx = __fsub_rn(mul(ln.oy, ln.dz), mul(ln.oz, ln.dy));
+  ln.wy = __fsub_rn(mul(ln.oz, ln.dx), mul(ln.ox, ln.dz));
+  ln.wz = __fsub_rn(mul(ln.ox, ln.dy), mul(ln.oy, ln.dx));
+  ln.bt = CUDART_INF_F;
+  ln.bi = -1;
+  ln.tl = t_last[r];
 
   const int n = nvisit[b];
-  for (int k = 0; k < n; ++k) {
-    const int c = order[(long long)b * ce + k];
+  const int* ord = order + (long long)b * ce;
+  const float* ent = entry + (long long)b * ce;
+  const int n_stages = n * group;
+  const uint32_t stage_bytes = (uint32_t)stage_floats * 4u;
+  if (tid == 0) {
+    mbar_init(&full[0]);
+    mbar_init(&full[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // a group starts only if its lanes can reach the first ranked entry
+  bool act = n > 0 && group_continues(ln, ent[0]);
+  int go = __syncthreads_or(act);   // also publishes the barriers
+
+  // thread 0 issues the copies: stage s = (rank s / group, sub-chunk
+  // s % group) into buffer s & 1, the u-th use of which completes phase u
+  int issued = 0;
+  auto issue = [&](int s) {
+    const int c = ord[s / group];
+    const long long tri0 = ((long long)c * group + s % group) * tc;
+    uint64_t* bar = &full[s & 1];
+    mbar_expect_tx(bar, stage_bytes);
+    bulk_load(buf + (s & 1) * stage_floats, coef + tri0 * kCoef, stage_bytes,
+              bar);
+    issued = s + 1;
+  };
+  if (go && tid == 0) issue(0);
+
+  int done_stages = 0;
+  for (int k = 0; k < n && go; ++k) {
     for (int g = 0; g < group; ++g) {
-      const long long tri0 = (long long)(c * group + g) * tc;
-      const float* src = coef + tri0 * kCoef;
-      __syncthreads();   // every thread is done with the previous chunk
-      for (int i = tid; i < tc * kCoef; i += nt) sc[i] = src[i];
-      __syncthreads();
-      for (int row = 0; row < tc; ++row) {
-        const float* q = sc + row * kCoef;
-        const float n0 = q[0], n1 = q[1], n2 = q[2], cc = q[3];
-#pragma unroll
-        for (int j = 0; j < RPT; ++j) {
-          const float so = add(dot3(n0, n1, n2, ox[j], oy[j], oz[j]), cc);
-          const float sd = dot3(n0, n1, n2, dx[j], dy[j], dz[j]);
-          float pmin = 0.f;
-#pragma unroll
-          for (int e = 0; e < 3; ++e) {
-            const float* A = q + 4 + 3 * e;
-            const float* B = q + 13 + 3 * e;
-            const float bd = dot3(B[0], B[1], B[2], dx[j], dy[j], dz[j]);
-            const float nk = add(add(add(bd, mul(A[0], wx[j])),
-                                     mul(A[1], wy[j])), mul(A[2], wz[j]));
-            const float p = mul(nk, sd);
-            pmin = e == 0 ? p : nan_min(pmin, p);
-          }
-          const float t = __fdiv_rn(-so, sd);
-          const float meps = mul(eps, mul(sd, sd));
-          const bool hit = (add(pmin, meps) >= 0.f) && (t >= t_min);
-          if (hit && t < bt[j]) {
-            bt[j] = t;
-            bi[j] = (int)(tri0 + row);
-          }
-        }
+      const int s = k * group + g;
+      // the other buffer was last read in stage s - 1, which every thread
+      // finished before the barrier that ended it
+      if (tid == 0 && s + 1 < n_stages) {
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        issue(s + 1);
       }
+      if (act) {
+        mbar_wait(&full[s & 1], (uint32_t)((s >> 1) & 1));
+        test_chunk(buf + (s & 1) * stage_floats, tc, ln,
+                   (ord[k] * group + g) * tc, t_min, eps);
+      }
+      done_stages = s + 1;
+      if (g + 1 < group) __syncthreads();
     }
-    // early termination: ranked entries are non-decreasing, so the block
-    // stops once the next entry exceeds every lane's min(best_t, t_last)
-    float worst = -CUDART_INF_F;
-#pragma unroll
-    for (int j = 0; j < RPT; ++j) worst = fmaxf(worst, fminf(bt[j], tl[j]));
-    for (int off = 16; off > 0; off >>= 1)
-      worst = fmaxf(worst, __shfl_xor_sync(0xffffffffu, worst, off));
-    if ((tid & 31) == 0) red[tid >> 5] = worst;
-    __syncthreads();
-    if (tid == 0) {
-      float m = red[0];
-      for (int i = 1; i < nt / 32; ++i) m = fmaxf(m, red[i]);
-      red[32] = m;
-    }
-    __syncthreads();
-    if (entry[(long long)b * ce + k + 1] > red[32]) break;   // block-uniform
+    if (act) act = k + 1 < n && group_continues(ln, ent[k + 1]);
+    go = __syncthreads_or(act);
   }
+  // drain: a copy started for a stage that was never consumed must land
+  // before the CTA's shared memory is released
+  if (tid == 0)
+    for (int s = done_stages; s < issued; ++s)
+      mbar_wait(&full[s & 1], (uint32_t)((s >> 1) & 1));
 
-#pragma unroll
-  for (int j = 0; j < RPT; ++j) {
-    const long long r = ray0 + tid + j * nt;
-    const bool live = bt[j] < CUDART_INF_F;
-    best_t_out[r] = bt[j];
-    best_idx_out[r] = live ? bi[j] : -1;
-    float4* dst = reinterpret_cast<float4*>(rows_out + r * kFetch);
-    if (live) {
-      const float4* s4 =
-          reinterpret_cast<const float4*>(fetch + (long long)bi[j] * kFetch);
-      for (int i = 0; i < kFetch / 4; ++i) dst[i] = s4[i];
-    } else {
-      for (int i = 0; i < kFetch / 4; ++i)
-        dst[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
+  const bool live = ln.bt < CUDART_INF_F;
+  best_t_out[r] = ln.bt;
+  best_idx_out[r] = live ? ln.bi : -1;
+  float4* dst = reinterpret_cast<float4*>(rows_out + r * kFetch);
+  if (live) {
+    const float4* s4 =
+        reinterpret_cast<const float4*>(fetch + (long long)ln.bi * kFetch);
+    for (int i = 0; i < kFetch / 4; ++i) dst[i] = s4[i];
+  } else {
+    for (int i = 0; i < kFetch / 4; ++i)
+      dst[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-}
-
-template <int RPT>
-cudaError_t launch(int n_blocks, int nt, size_t smem, cudaStream_t stream,
-                   const int* nvisit, const int* order, const float* entry,
-                   int ce, const float* o, const float* d, const float* t_last,
-                   const float* coef, const float* fetch, int tc, int group,
-                   float t_min, float eps, float* best_t, int* best_idx,
-                   float* rows) {
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        sweep_kernel<RPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  sweep_kernel<RPT><<<n_blocks, nt, smem, stream>>>(
-      nvisit, order, entry, ce, o, d, t_last, coef, fetch, tc, group, t_min,
-      eps, best_t, best_idx, rows);
-  return cudaGetLastError();
 }
 
 }  // namespace
 
 // nvisit (B,) i32; order (B, ce) i32 ranked supergroups; entry (B, ce) f32
 // ranked entries with +inf after the last; o, d (B*RB, 3); t_last (B*RB,);
-// coef (T, 22); fetch (T, 16). Outputs best_t (B*RB,), best_idx (B*RB,)
-// (-1 on miss), rows (B*RB, 16) (zeros on miss).
+// coef (T, 22) with a 16-byte aligned base; fetch (T, 16). tc even, RB a
+// multiple of 128. Outputs best_t (B*RB,), best_idx (B*RB,) (-1 on miss),
+// rows (B*RB, 16) (zeros on miss). A block's lanes go to RB / 128 CTAs.
 extern "C" int rr_sweep(const int* nvisit, const int* order,
                         const float* entry, int ce, const float* o,
                         const float* d, const float* t_last, const float* coef,
@@ -193,23 +299,19 @@ extern "C" int rr_sweep(const int* nvisit, const int* order,
                         int tc, int group, float t_min, float eps,
                         float* best_t, int* best_idx, float* rows,
                         cudaStream_t stream) {
-  const size_t smem = ((size_t)tc * kCoef + 33) * sizeof(float);
+  if (ray_block % 128 != 0 || tc < 2 || tc % 2 != 0 || group < 1 ||
+      (reinterpret_cast<uintptr_t>(coef) & 15u) != 0)
+    return (int)cudaErrorInvalidValue;
   if (n_blocks == 0) return cudaSuccess;
-  for (int rpt = 1; rpt <= 8; rpt *= 2) {
-    const int nt = ray_block / rpt;
-    if (ray_block % rpt != 0 || nt > 512 || nt % 32 != 0) continue;
-#define RR_SWEEP_CASE(R)                                                     \
-  case R:                                                                    \
-    return (int)launch<R>(n_blocks, nt, smem, stream, nvisit, order, entry,  \
-                          ce, o, d, t_last, coef, fetch, tc, group, t_min,   \
-                          eps, best_t, best_idx, rows);
-    switch (rpt) {
-      RR_SWEEP_CASE(1)
-      RR_SWEEP_CASE(2)
-      RR_SWEEP_CASE(4)
-      RR_SWEEP_CASE(8)
-    }
-#undef RR_SWEEP_CASE
+  const int ctas_per_block = ray_block / kLanes;
+  const size_t smem = (size_t)2 * tc * kCoef * sizeof(float) + 16;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
   }
-  return (int)cudaErrorInvalidValue;
+  sweep_kernel<<<n_blocks * ctas_per_block, kLanes, smem, stream>>>(
+      nvisit, order, entry, ce, o, d, t_last, coef, fetch, tc, group,
+      ctas_per_block, t_min, eps, best_t, best_idx, rows);
+  return (int)cudaGetLastError();
 }

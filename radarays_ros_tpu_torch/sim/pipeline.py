@@ -91,7 +91,13 @@ def trace_budget(cfg: RadarModelConfig, waves: Waves) -> torch.Tensor:
     of one-way distance and travel time only grows, so a hit arriving past
     the image (plus the denoise splat reach) contributes nothing, nor do its
     descendants — clamping the trace there is exact (the reference's
-    sim/pipeline.py:92-109)."""
+    sim/pipeline.py:92-109).
+
+    Invalid waves (missed, or below the energy threshold) get budget 0: no
+    signal of theirs survives binning (every signal and child is gated by
+    `waves.valid & hit`), so only their own, discarded trace results
+    change. Their lanes then keep no chunk and never hold the sweep's
+    early termination back, like the sweep's padding lanes."""
     weights, _ = cfg.denoiser()
     slack = 0 if weights is None else len(weights)
     t_lim = (cfg.n_cells + slack) * cfg.resolution / 0.3
@@ -99,7 +105,8 @@ def trace_budget(cfg: RadarModelConfig, waves: Waves) -> torch.Tensor:
         # the air return travels hit -> sensor directly, which can be
         # arbitrarily short: only time * 1 (not * 2) bounds its signal
         t_lim = 2.0 * t_lim
-    return torch.clamp_min(t_lim - waves.time, 0.0) * waves.velocity
+    budget = torch.clamp_min(t_lim - waves.time, 0.0) * waves.velocity
+    return torch.where(waves.valid, budget, 0.0)
 
 
 def _bounce(cfg: RadarModelConfig, params: RadarParams, scene: SceneTensors,

@@ -39,10 +39,13 @@ from radarays_ros_tpu_torch.wave.cone import sample_cone_draws
 class Radar:
     def __init__(self, scene: Scene, params: Optional[RadarParams] = None,
                  cfg: Optional[RadarModelConfig] = None, seed: int = 0,
-                 device="cpu", verbose_timing: bool = False):
+                 device="cuda", verbose_timing: bool = False):
         from radarays_ros_tpu_torch.utils.profiling import StageTimer
 
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Radar: no CUDA device; pass device='cpu' to "
+                               "simulate on the host")
         self.timer = StageTimer(enabled=verbose_timing)
         self.verbose_timing = verbose_timing
         self.scene = scene

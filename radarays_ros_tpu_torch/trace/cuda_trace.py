@@ -14,8 +14,9 @@ Per block of `ray_block` rays:
   2. rank the block's chunks by entry (stable sort); nvisit = the number of
      finite entries.
   3. sweep (K1, `sweep`) — visit chunks front to back, keep each lane's
-     nearest hit, stop once the next entry exceeds max_lanes min(best_t,
-     t_last), fetch the winner records.
+     nearest hit; each aligned group of 32 lanes stops once the next entry
+     exceeds max over its lanes of min(best_t, t_last); fetch the winner
+     records.
   4. the winner's distance is refined by Moller-Trumbore (trace/planes.py).
 
 Gradients: the winner search is discrete, so steps 1-3 run on detached
@@ -172,14 +173,16 @@ def prep_hier(words, lo, hi, o, idv, bud, t_max: float, RB: int, rbt: int):
     Rp = o.shape[0]
     Cp = lo.shape[0]
     G = Rp // rbt
-    if Rp % RB or RB % rbt or words.shape[0] != G \
-            or words.shape[1] * 32 * _SG < Cp:
+    if Rp % RB or RB % rbt or rbt % 128 or rbt > 1024 or Cp % _SG \
+            or words.shape[0] != G or words.shape[1] * 32 * _SG < Cp:
         raise ValueError("prep_hier: inconsistent shapes "
                          f"(rays {Rp}, block {RB}, tile {rbt}, "
                          f"words {tuple(words.shape)}, chunks {Cp})")
+    # both outputs are folded into by atomics: entries by min, t_last by max
     entry = torch.full((Rp // RB, Cp), torch.inf, dtype=torch.float32,
                        device=o.device)
-    t_last = torch.empty(Rp, dtype=torch.float32, device=o.device)
+    t_last = torch.full((Rp,), -torch.inf, dtype=torch.float32,
+                        device=o.device)
     lib = cuda_build.build().lib
     cuda_build.check(lib.rr_prep_hier(
         words.data_ptr(), words.shape[1], lo.data_ptr(), hi.data_ptr(), Cp,
@@ -287,34 +290,44 @@ def _chunk_t(o, d, w, cf, t_min: float):
 
 
 def _sweep_plain(nvisit, order, entry, o, d, t_last, coef, fetch, *,
-                 tc: int, group: int, t_min: float):
-    """Plain K1: all ray blocks in lock-step over visit rank, as
-    (blocks, RB, tc) tensors per step, until every block is done.
+                 tc: int, group: int, t_min: float, with_visits: bool = False):
+    """Plain K1: every aligned group of 32 consecutive lanes of a ray block
+    walks its block's ranked list on its own; all groups advance in
+    lock-step over visit rank, as (groups, 32, tc) tensors per step, until
+    every group is done.
+
+    A group starts only if its first ranked entry is <= max over its lanes
+    of t_last, and stops once the next entry exceeds max over its lanes of
+    min(best_t, t_last) — the reference's per-lane exactness argument
+    (pallas_trace.py:112-120) at the kernel's warp granularity.
 
     nvisit (B,) i32; order/entry (B, ce) ranked supergroups and entries
     (+inf after the last); o, d (B*RB, 3); t_last (B*RB,). Returns best_t
-    (B*RB,), best_idx (B*RB,) i32 (-1 on miss) and rows (B*RB, 16)."""
+    (B*RB,), best_idx (B*RB,) i32 (-1 on miss) and rows (B*RB, 16); with
+    `with_visits` also the supergroups visited per 32-lane group (B,
+    RB/32) i32."""
     B = nvisit.shape[0]
-    RB = o.shape[0] // B
+    G = o.shape[0] // (B * 32)                  # 32-lane groups per block
     dev = o.device
-    ob = o.view(B, RB, 1, 3)
-    db = d.view(B, RB, 1, 3)
-    wb = _cross(o, d).view(B, RB, 1, 3)
-    tl = t_last.view(B, RB)
-    best_t = torch.full((B, RB), torch.inf, device=dev)
-    best_i = torch.zeros((B, RB), dtype=torch.int64, device=dev)
+    ob = o.view(B, G, 32, 1, 3)
+    db = d.view(B, G, 32, 1, 3)
+    wb = _cross(o, d).view(B, G, 32, 1, 3)
+    tl = t_last.view(B, G, 32)
+    best_t = torch.full((B, G, 32), torch.inf, device=dev)
+    best_i = torch.zeros((B, G, 32), dtype=torch.int64, device=dev)
     coef_g = coef.view(-1, group, tc, coef.shape[1])
     rows_ix = torch.arange(tc, device=dev)
-    active = nvisit > 0
+    active = (nvisit > 0)[:, None] & ~(entry[:, :1] > tl.amax(dim=2))
+    visits = torch.zeros((B, G), dtype=torch.int32, device=dev)
     k = 0
     while bool(active.any()):
-        ab = torch.nonzero(active)[:, 0]
+        ab, gb = torch.nonzero(active, as_tuple=True)
         c = order[ab, k].long()
-        bt = best_t[ab]
-        bi = best_i[ab]
+        bt = best_t[ab, gb]
+        bi = best_i[ab, gb]
         for g in range(group):
-            tm = _chunk_t(ob[ab], db[ab], wb[ab], coef_g[c, g][:, None],
-                          t_min)                              # (nb, RB, tc)
+            tm = _chunk_t(ob[ab, gb], db[ab, gb], wb[ab, gb],
+                          coef_g[c, g][:, None], t_min)       # (n, 32, tc)
             local_t = tm.amin(dim=-1)
             local_i = torch.where(tm == local_t[..., None], rows_ix,
                                   tc).amin(dim=-1)
@@ -322,16 +335,19 @@ def _sweep_plain(nvisit, order, entry, o, d, t_last, coef, fetch, *,
             bt = torch.where(better, local_t, bt)
             bi = torch.where(better, (c[:, None] * group + g) * tc + local_i,
                              bi)
-        best_t[ab] = bt
-        best_i[ab] = bi
-        worst = torch.minimum(bt, tl[ab]).amax(dim=1)
+        best_t[ab, gb] = bt
+        best_i[ab, gb] = bi
+        visits[ab, gb] += 1
+        worst = torch.minimum(bt, tl[ab, gb]).amax(dim=1)
         done = entry[ab, k + 1] > worst
-        active[ab] = ~done & (k + 1 < nvisit[ab])
+        active[ab, gb] = ~done & (k + 1 < nvisit[ab])
         k += 1
     best_t = best_t.view(-1)
     live = best_t < torch.inf
     best_i = torch.where(live, best_i.view(-1), -1)
     rows = torch.where(live[:, None], fetch[best_i.clamp_min(0)], 0.0)
+    if with_visits:
+        return best_t, best_i.to(torch.int32), rows, visits
     return best_t, best_i.to(torch.int32), rows
 
 
@@ -350,9 +366,15 @@ def sweep(nvisit, order, entry, o, d, t_last, coef, fetch, *, tc: int,
                              dtypes=(torch.float32,) * 6)
     B, ce = order.shape
     Rp = o.shape[0]
-    if Rp % B or entry.shape != (B, ce) or coef.shape[1] != 22 \
-            or fetch.shape[1] != 16 or coef.shape[0] % (tc * group):
-        raise ValueError("sweep: inconsistent shapes")
+    if Rp % B or (Rp // B) % 128 or entry.shape != (B, ce) \
+            or coef.shape[1] != 22 or fetch.shape[1] != 16 \
+            or coef.shape[0] % (tc * group) or tc % 2:
+        raise ValueError("sweep: inconsistent shapes (the kernel takes ray "
+                         "blocks of a multiple of 128 and an even chunk "
+                         "size)")
+    if coef.data_ptr() % 16:
+        raise ValueError("sweep: coef must be 16-byte aligned (its chunks "
+                         "are staged by TMA bulk copies)")
     best_t = torch.empty(Rp, dtype=torch.float32, device=o.device)
     best_i = torch.empty(Rp, dtype=torch.int32, device=o.device)
     rows = torch.empty(Rp, 16, dtype=torch.float32, device=o.device)

@@ -138,7 +138,7 @@ def test_simulate_frames_meet_the_contract_against_jax_cli(files, tmp_path,
     args = pcli.build_parser().parse_args(
         [str(a) for a in common + ["--device", "cpu"]])
     cfg, params = pcli._load_cfg_params(args, scene)
-    radar = Radar(scene, params, cfg, seed=4)
+    radar = Radar(scene, params, cfg, seed=4, device="cpu")
     tr = PTraj.load_tum(files / "traj.txt")
     gen = torch.Generator().manual_seed(4)
     stamps = np.concatenate([tr.stamps[:3], tr.stamps[2:3]])

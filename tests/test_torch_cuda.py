@@ -52,29 +52,94 @@ def _fan(n, dev, seed=0):
             torch.from_numpy(bud).to(dev))
 
 
-@pytest.mark.parametrize("rb", [2048, 768, 128])
-def test_prep_and_sweep_kernels_equal_plain(scene, dev, rb):
-    o, d, bud = _fan(8192 + 77, dev)
+def _kernels_equal_plain(scene, o, d, bud, rb, group):
+    """The culling prep (K3 and K2, or K4 under 256 supergroups, as the
+    trace's _run_prep picks) and K1 against their plain versions bit for
+    bit on one ray set; returns the plain sweep's visits per 32-lane group
+    and best_t."""
     o, d, inv_d, bud, lo, hi, C2 = CT._prep_inputs(scene, o, d, bud,
-                                                    ray_block=rb, group=1)
-    rbt = next(r for r in (1024, 512, 256, 128) if rb % r == 0)
-    slo, shi = CT._coarse_boxes(lo, hi)
-    w_k = CT.coarse_words(slo, shi, o, inv_d, bud, 1000.0, rbt)
-    w_p = CT._coarse_words_plain(slo, shi, o, inv_d, bud, 1000.0, rbt)
-    assert torch.equal(w_k, w_p) and (w_k != 0).any()
-    e_k, t_k = CT.prep_hier(w_k, lo, hi, o, inv_d, bud, 1000.0, rb, rbt)
-    e_p, t_p = CT._prep_plain(lo, hi, o, inv_d, bud, 1000.0, rb, rbt, w_k)
+                                                    ray_block=rb, group=group)
+    n0 = CT.sweep.launches
+    e_k, t_k = CT._run_prep(lo, hi, o, inv_d, bud, t_max=1000.0, RB=rb,
+                            kernels=True)
+    e_p, t_p = CT._run_prep(lo, hi, o, inv_d, bud, t_max=1000.0, RB=rb,
+                            kernels=False)
     assert torch.equal(e_k, e_p) and torch.equal(t_k, t_p)
     nvisit, order, entry = CT._rank(e_k[:, :C2])
     args = (nvisit, order, entry, o, d, t_k, scene.coef, scene.fetch)
-    kw = dict(tc=scene.chunk_size, group=1, t_min=0.0)
-    bt_k, bi_k, rows_k = CT.sweep(*args, **kw)
-    bt_p, bi_p, rows_p = CT._sweep_plain(*args, **kw)
+    kw = dict(tc=scene.chunk_size, group=group, t_min=0.0)
+    got = CT.sweep(*args, **kw)
+    bt_p, bi_p, rows_p, visits = CT._sweep_plain(*args, **kw,
+                                                 with_visits=True)
     torch.cuda.synchronize()
-    assert torch.equal(bt_k, bt_p)
-    assert torch.equal(bi_k, bi_p)
-    assert torch.equal(rows_k, rows_p)
-    assert torch.isfinite(bt_k).float().mean() > 0.3
+    assert CT.sweep.launches == n0 + 1
+    for x, y in zip(got, (bt_p, bi_p, rows_p)):
+        assert torch.equal(x, y)
+    return visits, bt_p
+
+
+@pytest.mark.parametrize("rb,group,lanes", [
+    (2048, 1, "fan"), (768, 1, "fan"), (128, 1, "fan"),
+    (2048, 1, "dead_sky"), (768, 1, "dead_sky"), (128, 1, "dead_sky"),
+    (2048, 2, "dead_sky")])
+def test_prep_and_sweep_kernels_equal_plain(scene, dev, rb, group, lanes):
+    """K3, K2 (or K4) and K1 bit for bit for the split CTAs of every block
+    width; "dead_sky" lanes include budget-0 (dead) lanes, whole dead
+    groups and steep sky rays, and group 2 takes supergroups of 2 chunks."""
+    o, d, bud = _fan(8192 + 77, dev, seed=0 if lanes == "fan" else 4)
+    if lanes == "dead_sky":
+        d[::7, 2] = 0.9
+        d = d / torch.linalg.norm(d, dim=1, keepdim=True)
+        bud[::3] = 0.0
+        bud[:96] = 0.0
+    if group == 1:
+        o_p, _, inv_d, bud_p, lo, hi, _ = CT._prep_inputs(
+            scene, o, d, bud, ray_block=rb, group=1)
+        rbt = next(r for r in (1024, 512, 256, 128) if rb % r == 0)
+        slo, shi = CT._coarse_boxes(lo, hi)
+        args = (slo, shi, o_p, inv_d, bud_p, 1000.0, rbt)
+        w_k, w_p = CT.coarse_words(*args), CT._coarse_words_plain(*args)
+        assert torch.equal(w_k, w_p) and (w_k != 0).any()
+    visits, bt = _kernels_equal_plain(scene, o, d, bud, rb, group)
+    if lanes == "fan":
+        assert torch.isfinite(bt).float().mean() > 0.3
+    else:
+        assert (visits.view(-1)[:3] == 0).all()
+        assert torch.isfinite(bt).float().mean() > 0.2
+
+
+def test_kernels_equal_plain_on_second_bounce(scene, dev):
+    """K2 and K1 bit for bit on the second bounce's rays of a small frame
+    (the pipeline's own budgets, dead waves at 0), in its ray-major
+    order."""
+    from radarays_ros_tpu_torch.sim import pipeline as P
+    from radarays_ros_tpu_torch.sim.config import (Materials,
+                                                   RadarModelConfig,
+                                                   RadarParams)
+    from radarays_ros_tpu_torch.utils.transforms import make_pose
+
+    n_obj = int(scene.obj_ids.max()) + 1
+    params = RadarParams.make(Materials.from_list([
+        dict(velocity=0.3, ambient=1.0, diffuse=0.0, specular=1.0),
+        dict(velocity=0.0, ambient=0.5, diffuse=0.4, specular=60.0)],
+        device=dev), np.ones(n_obj, np.int32), 8.0)
+    cfg = RadarModelConfig(n_angles=128, n_cells=1024, resolution=0.1,
+                           n_samples=16, n_reflections=2,
+                           trace_ray_block=2048)
+    poses = torch.from_numpy(np.stack([make_pose([0.5, 0.5, 2.0]),
+                                       make_pose([3.0, -1.0, 2.0])]))
+    waves, sensor_pos = P.start_waves(
+        params, cfg, poses, generator=torch.Generator(dev).manual_seed(0),
+        device=dev)
+    with torch.no_grad():
+        waves, _ = P._bounce(cfg, params, scene, waves, sensor_pos, 0)
+    assert 0.0 < float(waves.valid.float().mean()) < 1.0
+
+    def rm(x):
+        return x.movedim(0, 2).reshape(-1, *x.shape[3:]).contiguous()
+
+    _kernels_equal_plain(scene, rm(waves.orig), rm(waves.dir),
+                         rm(P.trace_budget(cfg, waves)), 2048, 1)
 
 
 def test_kernel_engine_matches_brute(scene, dev):

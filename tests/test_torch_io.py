@@ -465,7 +465,8 @@ def test_radar_stamps_extrapolation_and_reseed():
         [1, 1], beam_width_deg=6.0)
     cfg = RadarModelConfig(n_angles=16, n_cells=96, resolution=0.25,
                            n_samples=3, n_reflections=2, ambient_noise=1)
-    radar = Radar(scene, params, cfg, seed=3, verbose_timing=True)
+    radar = Radar(scene, params, cfg, seed=3, device="cpu",
+                  verbose_timing=True)
     p0 = ptf.make_pose([0.0, 0.0, 1.0])
     p1 = ptf.make_pose([1.0, 0.5, 1.0], jtf.quat_from_euler(0, 0, 0.2))
     a = radar.simulate_image(p0, stamp=0.0)

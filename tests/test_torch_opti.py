@@ -317,7 +317,7 @@ def test_radar_image_server(room):
     params = RadarParams.make(Materials.from_list(_TRUE), _OBJ,
                               beam_width_deg=4.0)
     server = RadarImageServer(Radar(Scene.compose(_parts(), chunk_size=8),
-                                    params, cfg))
+                                    params, cfg, device="cpu"))
     msg = server.get_radar_params()
     assert msg["model"]["beam_width"] == pytest.approx(4.0, abs=1e-4)
     assert len(msg["materials"]["data"]) == 3

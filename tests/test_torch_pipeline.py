@@ -248,7 +248,7 @@ def test_radar_front_end(world):
     mats = Materials.from_list(_MATS)
     params = RadarParams.make(mats, _OBJ_MATS, beam_width_deg=15.0)
     cfg = RadarModelConfig(**{**_CFG, "opaque_materials": False})
-    radar = Radar(scene, params, cfg, seed=1)
+    radar = Radar(scene, params, cfg, seed=1, device="cpu")
     assert radar.cfg.opaque_materials and radar.cfg.trace_aux_baked
     a = radar.simulate_image(make_pose([0.5, -0.3, 1.0]))
     b = radar.simulate_image()                    # last pose, fresh noise
@@ -271,7 +271,8 @@ def test_radar_beam_width_update_rebuilds_cone(world, monkeypatch):
     scene = world[0]
     params = RadarParams.make(Materials.from_list(_MATS), _OBJ_MATS,
                               beam_width_deg=8.0)
-    radar = Radar(scene, params, RadarModelConfig(**_CFG), seed=2)
+    radar = Radar(scene, params, RadarModelConfig(**_CFG), seed=2,
+                  device="cpu")
     seen = []
     start = P.start_waves
 
@@ -308,3 +309,65 @@ def test_radar_beam_width_update_rebuilds_cone(world, monkeypatch):
     radar.update_params(radar.params, resample=True)
     radar.simulate()
     assert not torch.equal(seen[4], seen[3])
+
+
+def _budget_before_dead_lanes(cfg, waves):
+    """trace_budget without the zero budget of invalid waves."""
+    weights, _ = cfg.denoiser()
+    slack = 0 if weights is None else len(weights)
+    t_lim = (cfg.n_cells + slack) * cfg.resolution / 0.3
+    if cfg.record_multi_path:
+        t_lim = 2.0 * t_lim
+    return torch.clamp_min(t_lim - waves.time, 0.0) * waves.velocity
+
+
+@pytest.mark.parametrize("opaque,multipath", [(True, False), (False, True)])
+def test_dead_wave_budget_leaves_frames_bit_identical(world, monkeypatch,
+                                                      opaque, multipath):
+    """Invalid waves get trace budget 0: their signals and children are
+    gated by validity, so the frames (image, column maxima, u8) equal bit
+    for bit those traced with the full budget, on the opaque path and on
+    the refraction tree with multipath; and some budget really changed."""
+    scene, st, _, _, _ = world
+    _, params = _both_params(_MATS if opaque else _MATS_T)
+    cfg = RadarModelConfig(**{**_CFG, "opaque_materials": opaque,
+                              "record_multi_path": multipath,
+                              "multipath_threshold": 0.3})
+    pose = torch.from_numpy(make_pose([0.5, -0.3, 1.0]))
+    gen = torch.Generator().manual_seed(4)
+    from radarays_ros_tpu_torch.wave.cone import sample_cone_local
+
+    kw = dict(local_dirs=sample_cone_local(
+        gen, params.beam_width, cfg.n_samples, cfg.beam_sample_dist, 0.8),
+        random_begin=torch.randint(0, 1000, (cfg.n_angles,), generator=gen))
+    zeroed = []
+    budget = P.trace_budget
+
+    def spy(c, waves):
+        b = budget(c, waves)
+        zeroed.append(int(((b == 0) & (_budget_before_dead_lanes(c, waves)
+                                       > 0)).sum()))
+        return b
+
+    monkeypatch.setattr(P, "trace_budget", spy)
+    got = simulate_frame(st, params, cfg, pose, **kw)
+    assert sum(zeroed) > 0
+    monkeypatch.setattr(P, "trace_budget", _budget_before_dead_lanes)
+    want = simulate_frame(st, params, cfg, pose, **kw)
+    assert (want.image_u8 > 0).any()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_radar_defaults_to_the_card(world):
+    """Radar(scene) simulates on the card by default and raises without
+    one; it never carries on on the CPU."""
+    scene = world[0]
+    params = RadarParams.make(Materials.from_list(_MATS), _OBJ_MATS,
+                              beam_width_deg=8.0)
+    if torch.cuda.is_available():
+        assert Radar(scene, params).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Radar(scene, params)
+    assert Radar(scene, params, device="cpu").device.type == "cpu"

@@ -285,3 +285,75 @@ def test_auto_engine_and_aux_fetch(scenes):
                                   1000.0 + brute.obj_id.numpy()[hit])
     with pytest.raises(ValueError, match="trace engine"):
         trace(st, torch.from_numpy(o), torch.from_numpy(d), engine="pallas3")
+
+
+def _sweep_block_wide(nvisit, order, entry, o, d, t_last, coef, fetch, *,
+                      tc, group, t_min):
+    """The plain K1 before per-group termination: every lane of a block
+    sweeps until the next entry exceeds max over the BLOCK's lanes of
+    min(best_t, t_last). Kept here as the yardstick of the 32-lane rule."""
+    B = nvisit.shape[0]
+    RB = o.shape[0] // B
+    ob, db = o.view(B, RB, 1, 3), d.view(B, RB, 1, 3)
+    wb = CT._cross(o, d).view(B, RB, 1, 3)
+    tl = t_last.view(B, RB)
+    best_t = torch.full((B, RB), torch.inf)
+    best_i = torch.zeros((B, RB), dtype=torch.int64)
+    coef_g = coef.view(-1, group, tc, coef.shape[1])
+    rows_ix = torch.arange(tc)
+    active = nvisit > 0
+    k = 0
+    while bool(active.any()):
+        ab = torch.nonzero(active)[:, 0]
+        c = order[ab, k].long()
+        bt, bi = best_t[ab], best_i[ab]
+        for g in range(group):
+            tm = CT._chunk_t(ob[ab], db[ab], wb[ab], coef_g[c, g][:, None],
+                             t_min)
+            local_t = tm.amin(dim=-1)
+            local_i = torch.where(tm == local_t[..., None], rows_ix,
+                                  tc).amin(dim=-1)
+            better = local_t < bt
+            bt = torch.where(better, local_t, bt)
+            bi = torch.where(better, (c[:, None] * group + g) * tc + local_i,
+                             bi)
+        best_t[ab], best_i[ab] = bt, bi
+        worst = torch.minimum(bt, tl[ab]).amax(dim=1)
+        active[ab] = ~(entry[ab, k + 1] > worst) & (k + 1 < nvisit[ab])
+        k += 1
+    best_t = best_t.view(-1)
+    return best_t, torch.where(best_t < torch.inf, best_i.view(-1), -1)
+
+
+@pytest.mark.parametrize("rb,group", [(128, 1), (128, 2), (2048, 1),
+                                      (2048, 2)])
+def test_group_termination_equals_block_wide(scenes, rb, group):
+    """The plain K1 with termination per aligned group of 32 lanes gives the
+    block-wide loop's winners and distances on every lane whose nearest hit
+    lies within its budget (the trace's result; beyond-budget hits are
+    misses for every engine), on fans with sky rays, escaping rays and
+    per-ray budgets including 0; groups of budget-0 lanes visit nothing."""
+    st, _ = scenes
+    o, d, bud = _fan(4096 + 37, seed=9, el_lo=-0.3, el_hi=1.2,
+                     budgets=(0.0, 4.0, 25.0, 1000.0))
+    bud[:64] = 0.0                          # two whole groups of dead lanes
+    o, d, inv_d, bud, lo, hi, C2 = CT._prep_inputs(
+        st, torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(bud),
+        ray_block=rb, group=group)
+    entry, t_last = CT._run_prep(lo, hi, o, inv_d, bud, t_max=1000.0, RB=rb,
+                                 kernels=False)
+    nvisit, order, ranked = CT._rank(entry[:, :C2])
+    args = (nvisit, order, ranked, o, d, t_last, st.coef, st.fetch)
+    kw = dict(tc=st.chunk_size, group=group, t_min=0.0)
+    bt, bi, rows, visits = CT._sweep_plain(*args, **kw, with_visits=True)
+    bt_w, bi_w = _sweep_block_wide(*args, **kw)
+    cap = torch.clamp_max(bud, 1000.0)
+    ok, ok_w = (bt <= cap) & (cap > 0), (bt_w <= cap) & (cap > 0)
+    assert torch.equal(ok, ok_w)
+    assert 0.1 < float(ok.float().mean()) < 0.9
+    assert torch.equal(bt[ok], bt_w[ok]) and torch.equal(bi[ok], bi_w[ok])
+    assert torch.equal(rows[ok], st.fetch[bi[ok].long()])
+    # the dead groups never start; others stop earlier than their block
+    assert (visits.view(-1)[:2] == 0).all()
+    assert int(visits.sum()) < int(visits.amax(dim=1).sum()) * visits.shape[1]
+
