@@ -7,45 +7,48 @@ over the ~10k-triangle companion scene, and material fitting (Adam through
 the differentiable frame) at the KAIST image size.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernel-times [ROOT]
 
 Phases (one line of figures each; any failure raises and exits non-zero):
   1. environment: card name and power limit, torch/CUDA versions, TF32 off;
   2. build: nvcc of the kernel library (seconds);
   3. each kernel vs its plain version on the card at the trace gate's
      shapes (200k-triangle scene, 131,072-ray fan, ray block 2048) and the
-     bin kernel on a synthetic (400, 200) signal set with the KAIST taps;
+     bin kernel and its backward on a synthetic (400, 200) signal set with
+     the KAIST taps;
   4. trace gate: engine "kernel" vs engine "sweep" on the fan (0 hit and 0
      object mismatches), and a 4096-ray subset vs the brute oracle;
   5. frames: KAIST preset over make_urban_scene(83000, 300, seed=7) in
      batches of 4 — throughput with CUDA events, the launch count of every
-     kernel over the timed run; then the batch's bounces one by one through
-     the pipeline's _bounce, the rays in its ray-major order, and on each
-     bounce's rays and budgets K3, K2 and K1 against their plain versions:
-     one line per bounce with the valid share and hit rate of the lanes,
-     the ranked chunks (nvisit mean and max), K1's visits as the plain
-     version's loop counts them (per 32-lane group, per 128-lane CTA, per
-     block), the visits the lanes need (per lane, the ranked entries of its
-     block <= min(best_t, t_last) at the end), the chunks each lane keeps
-     itself (its own slab test, entry <= min(best_t, t_last)), and each
-     kernel's ms, plain ms, bitwise check and bound; K5 against its plain
-     version on the
-     batch's signals; and one frame rendered through the kernels and
-     through the plain versions under the frame contract of
-     tests/test_oracle.py:70-87;
+     kernel over the timed run; then the batch's bounces one by one
+     through the pipeline's _bounce, the rays in its ray-major order, and
+     on each bounce's rays and budgets K3, K2 and K1 against their plain
+     versions: one line per bounce with the valid share and hit rate of
+     the lanes, the ranked chunks (nvisit mean and max), K1's visits as the
+     plain version's loop counts them (per 32-lane group, per 128-lane
+     CTA, per block), the visits the lanes need (per lane, the ranked
+     entries of its block <= min(best_t, t_last) at the end), the chunks
+     each lane keeps itself (its own slab test, entry <= min(best_t,
+     t_last)), and each kernel's plain ms, bitwise check and bound; K5 and
+     its backward against their plain versions on the batch's signals,
+     with the share of output cells whose tap window holds a nonzero value
+     and the nonzero tap terms per such cell; and one frame rendered
+     through the kernels and through the plain versions under the frame
+     contract of tests/test_oracle.py:70-87;
   6. frames: the same preset over the 10k companion scene
      make_urban_scene(800, 300, seed=7) (40 chunks: the flat prep K4, not
-     K2/K3) — throughput, launch counts (K4, K1, K5 > 0; K2, K3 = 0), the
-     per-bounce lines for K4 and K1, and one frame through the kernels and
-     through the plain versions;
+     K2/K3) — throughput, launch counts (K4, K1, K5 > 0; K2, K3 and K5's
+     backward = 0), the per-bounce lines for K4 and K1, and one frame
+     through the kernels and through the plain versions;
   7. the fit (benchmarks/opti_scale.py at the KAIST image size): the
      refraction tree (opaque fast path off), 2 reflections, scene
      make_urban_scene(200, 150, seed=11), 3 frames on a circular
      trajectory, targets at the true parameters, 60 Adam steps split
      around a checkpoint save and load — steps/s, start and final PSNR,
-     evaluations to 40 dB, launch counts (K4, K1, K5 > 0); one loss and
-     gradient through the kernels and through the plain versions (loss
-     bit-equal, gradient finite, nonzero and within 1e-5 x max|g|), and
-     K5's backward time at the fit's shapes;
+     evaluations to 40 dB, launch counts (K4, K1, K5 and its backward
+     > 0); one loss and gradient through the kernels and through the
+     plain versions (loss bit-equal, gradient finite, nonzero and within
+     1e-5 x max|g|), and K5 and its backward at the fit's shapes;
   8. the command line (io.cli.main, in this process so that the launch
      counters see it) over files written to a temporary directory: phase
      5's scene as a binary PLY, a scene config, the KAIST preset (and its
@@ -63,22 +66,47 @@ Phases (one line of figures each; any failure raises and exits non-zero):
         (order, kinds, media exactly; positions and energies within 1e-4);
      e. `eval` stamp-synced against 8b's frames, `render` of one frame, and
         `optimize` (10 gradient steps, slot 1) on the 10k scene's PLY: a
-        finite loss, a checkpoint, and an --out-config read back.
-A kernel's bound is the larger of its operations over PEAK_OPS (the
-published f32 rate) and its bytes over PEAK_BYTES, counting each input
-byte once and the work these inputs need: K1, for each lane, the chunks
-its own slab test keeps with an entry <= min(best_t, t_last) at the end,
-x chunk size x 56 operations, and the coefficients of the distinct chunks
-some lane needs; K2 the slab tests under the set coarse bits (K3 every
-supergroup, K4 every box) x 20; K5 2 operations per tap and cell.
+        finite loss, a checkpoint, and an --out-config read back;
+  9. the profiler's figures, taken last because a torch.profiler session
+     leaves the host slower for the rest of the process: one batch of
+     phases 5 and 6 each under torch.profiler (its kernels, copies,
+     synchronizing calls, the device's idle share, and no copy issued
+     inside bin_signals, by a check that must count the copy of its
+     positive control, made inside a range of that name), and every
+     kernel's time at the shapes and on the inputs of phases 3, 5, 6
+     and 7.
+A kernel's time (ms) is its mean device time per launch from
+torch.profiler's CUDA activity over a loop of wrapper calls (K3's with the
+memset that zeroes its words); wrapper_ms is CUDA events around the same
+loop, so wrapper_ms - ms is the host's cost per call; ms_source says which
+(events where the profile held no device time). A kernel's bound is the
+larger of its operations over PEAK_OPS (the published f32 rate) and its
+bytes over PEAK_BYTES, counting each input byte once and the work these
+inputs need: K1, for each lane, the chunks its own slab test keeps with an
+entry <= min(best_t, t_last) at the end, x chunk size x 56 operations, and
+the coefficients of the distinct chunks some lane needs; K2 the slab tests
+under the set coarse bits (K3 every supergroup, K4 every box) x 20; K5 2
+operations per tap term whose point value is nonzero (the terms it runs);
+its backward 2 per tap and valid signal, and the cotangent cells in some
+signal's window.
 The last three lines of stdout are the kernel table as JSON, the card's name
 and power limit as nvidia-smi prints them, and the result JSON. Each row of
-the table: its launches over the timed run of the path that measured it
-(K1, K2, K3, K5 in phase 5, K4 in phase 6) and per batch; ms, plain_ms and
-bound_ms per launch averaged over a batch's launches, ms_by_bounce; the
+the table (sweep, prep_hier, coarse_words, prep_flat, bin, bin_bwd): its
+launches over the run of the path that measured it (K1, K2, K3, K5 in
+phase 5's timed batches, K4 in phase 6's, K5's backward in phase 7's Adam
+steps) and per batch (per step for the backward); ms, wrapper_ms, plain_ms
+and bound_ms per launch averaged over a batch's launches, ms_by_bounce; the
 largest error; bound_by; library_ms (null: no single PyTorch call computes
 these functions) with a library_note saying why. Details also go to
 chiprun_out/chip_smoke.json.
+
+With --kernel-times the script runs, through the port found under ROOT
+(default: this checkout), one batch of each frame path (phases 5 and 6):
+every trace kernel on each bounce and K5's forward, each checked against
+its plain version and timed by device time and wrapper events, and the
+batch's profile with the copies made inside bin_signals; it prints one
+JSON line. Two checkouts run in turns in one call compare their kernels
+on one card.
 """
 
 from __future__ import annotations
@@ -127,6 +155,64 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_ms(fn, reps: int, name: str, memset: bool = False) -> dict:
+    """A kernel's time per launch over `reps` calls of its wrapper fn, after
+    one warm-up: `ms`, the mean device time of the CUDA kernel KERNEL[name]
+    (with memset, plus the memsets in the window: K3 zeroes its words) from
+    torch.profiler's CUDA activity; `wrapper_ms`, CUDA events around the
+    loop of wrapper calls (cuda_ms: the host's work per call included);
+    and the host-to-device copies in the profiled window. Should the
+    profile hold no such kernel, ms is wrapper_ms and ms_source says so."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    wrapper = cuda_ms(fn, reps)
+    for _ in range(3):       # a profile may miss the launches at its start
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        mine = [e for e in dev if KERNEL[name] in e.name]
+        if 2 * len(mine) >= reps:
+            break
+    sets = [e for e in dev if memset and e.name.startswith("Memset")]
+    htod = sum("HtoD" in e.name for e in dev)
+    if not mine:
+        return dict(ms=wrapper, wrapper_ms=wrapper, htod_copies=htod,
+                    ms_source="CUDA events around the wrapper loop (the "
+                              "profile held no device time)")
+    # the mean over the launches the profile caught (it may miss one at
+    # its start)
+    ms = sum(e.time_range.elapsed_us() for e in mine) / len(mine) / 1e3
+    extra = {}
+    if sets:
+        extra["memset_ms"] = sum(e.time_range.elapsed_us()
+                                 for e in sets) / len(sets) / 1e3
+        ms += extra["memset_ms"]
+    return dict(ms=ms, wrapper_ms=wrapper, htod_copies=htod,
+                profiled_launches=len(mine), **extra,
+                ms_source="torch.profiler CUDA kernel time"
+                          + (" incl. memsets" if memset else ""))
+
+
+# Profiler work waits until every end-to-end figure is taken: after a
+# torch.profiler session the host enqueues more slowly for the rest of the
+# process (on the H100 the host-bound batches of phases 5 and 6 ran slower
+# behind one), so kernel_ms and batch_profile run in phase 9, after the
+# CLI.
+DEFERRED = []
+
+
+def timed(row: dict, fn, reps: int, name: str, memset: bool = False) -> dict:
+    """Queue kernel_ms(fn, reps, name, memset) for phase 9, which adds its
+    figures to row; returns row."""
+    DEFERRED.append(lambda: row.update(kernel_ms(fn, reps, name, memset)))
+    return row
 
 
 def max_abs(a, b) -> float:
@@ -199,7 +285,15 @@ LIBRARY_NOTE = {
     "prep_flat": "no PyTorch call computes per-block slab entries and lane "
                  "t_last in one call",
     "bin": "index_add_ would bin without the 35 fused denoise taps; the "
-           "fused function has no single PyTorch call"}
+           "fused function has no single PyTorch call",
+    "bin_bwd": "gather would take the cotangent at the cells without the "
+               "35 taps' adjoint correlation; no single PyTorch call "
+               "computes both"}
+# each wrapper's CUDA kernel, as the profiler names it
+KERNEL = {"sweep": "sweep_kernel", "prep_hier": "prep_hier_kernel",
+          "coarse_words": "coarse_words_kernel",
+          "prep_flat": "prep_flat_kernel", "bin": "bin_kernel",
+          "bin_bwd": "bin_bwd_kernel"}
 
 
 def bound(ops: float, nbytes: float) -> dict:
@@ -239,14 +333,14 @@ def kernels_vs_plain(st, o, d, bud, rb: int, reps: int) -> dict:
         w_p = CT._coarse_words_plain(slo, shi, o, inv_d, bud, 1000.0, rbt)
         n_bad = int((w_k != w_p).sum())
         check(n_bad == 0, f"K3 coarse words: {n_bad} words differ")
-        out["coarse_words"] = dict(
+        out["coarse_words"] = timed(dict(
             max_abs_err=0.0, bitwise=True,
-            ms=cuda_ms(lambda: CT.coarse_words(slo, shi, o, inv_d, bud,
-                                               1000.0, rbt), reps),
             plain_ms=cuda_ms(lambda: CT._coarse_words_plain(
                 slo, shi, o, inv_d, bud, 1000.0, rbt), max(1, reps // 5)),
             **bound(Rp * slo.shape[0] * OPS_SLAB,
-                    ray_bytes + slo.shape[0] * 24 + w_k.numel() * 4))
+                    ray_bytes + slo.shape[0] * 24 + w_k.numel() * 4)),
+            lambda: CT.coarse_words(slo, shi, o, inv_d, bud, 1000.0, rbt),
+            reps, "coarse_words", memset=True)
         name, args = "prep_hier", (w_k, lo, hi, o, inv_d, bud, 1000.0, rb,
                                    rbt)
         e_k, t_k = CT.prep_hier(*args)
@@ -270,12 +364,12 @@ def kernels_vs_plain(st, o, d, bud, rb: int, reps: int) -> dict:
     err = max(max_abs(e_k, e_p), max_abs(t_k, t_p))
     bitwise = bool(torch.equal(e_k, e_p) and torch.equal(t_k, t_p))
     check(bitwise, f"{name}: not bitwise (max abs error {err})")
-    out[name] = dict(max_abs_err=err, bitwise=bitwise, boxes=Cp,
-                     slab_tests=tests, **extra,
-                     ms=cuda_ms(lambda: kernel(*args), reps),
-                     plain_ms=cuda_ms(plain, max(1, reps // 5)),
-                     **bound(tests * OPS_SLAB,
-                             in_bytes + e_k.numel() * 4 + Rp * 4))
+    out[name] = timed(dict(max_abs_err=err, bitwise=bitwise, boxes=Cp,
+                           slab_tests=tests, **extra,
+                           plain_ms=cuda_ms(plain, max(1, reps // 5)),
+                           **bound(tests * OPS_SLAB,
+                                   in_bytes + e_k.numel() * 4 + Rp * 4)),
+                      lambda: kernel(*args), reps, name)
     out["sweep"] = sweep_vs_plain(st, e_k, C2, o, d, t_k, bud, reps,
                                   boxes=(lo[:C2], hi[:C2], inv_d))
     return out
@@ -338,7 +432,7 @@ def sweep_vs_plain(st, e_k, C2: int, o, d, t_k, bud, reps: int,
     lanes = int((bud > 0).sum())
     tri_bytes = st.chunk_size * 22 * 4
     hit = (bud > 0) & (bt_p <= torch.clamp_max(bud, 1000.0))
-    return dict(
+    return timed(dict(
         max_abs_err=err, bitwise=bool(torch.equal(bt_k, bt_p)
                                       and torch.equal(rows_k, rows_p)),
         winners_differ=n_win,
@@ -354,11 +448,11 @@ def sweep_vs_plain(st, e_k, C2: int, o, d, t_k, bud, reps: int,
         chunks_kept_lane_mean=float(kept.float().mean()),
         chunks_kept_lane_max=int(kept.max()),
         distinct_chunks_needed=int(seen.sum()),
-        ms=cuda_ms(lambda: CT.sweep(*args, **kw), reps),
         plain_ms=cuda_ms(lambda: CT._sweep_plain(*args, **kw), 1),
         **bound(float(kept.sum()) * st.chunk_size * OPS_PAIR,
                 int(seen.sum()) * tri_bytes + o.shape[0] * (12 + 12 + 4)
-                + order.numel() * 8 + o.shape[0] * (4 + 4 + 64)))
+                + order.numel() * 8 + o.shape[0] * (4 + 4 + 64))),
+        lambda: CT.sweep(*args, **kw), reps, "sweep")
 
 
 def per_launch(rows: list) -> dict:
@@ -372,6 +466,9 @@ def per_launch(rows: list) -> dict:
         max_abs_err=max(r["max_abs_err"] for r in rows),
         ms=sum(r["ms"] for r in rows) / n,
         ms_by_bounce=[r["ms"] for r in rows],
+        wrapper_ms=sum(r["wrapper_ms"] for r in rows) / n,
+        wrapper_ms_by_bounce=[r["wrapper_ms"] for r in rows],
+        ms_source="; ".join(sorted({r["ms_source"] for r in rows})),
         plain_ms=sum(r["plain_ms"] for r in rows) / n,
         plain_ms_by_bounce=[r["plain_ms"] for r in rows],
         **bound(ops / n, nbytes / n),
@@ -380,25 +477,104 @@ def per_launch(rows: list) -> dict:
     return out
 
 
+def tap_windows(mask, W: int, mode: int):
+    """For each cell c of the rows of a bool mask (rows, n_cells): does the
+    tap window [c - (W-1-mode), c + mode] hold a set cell? The window of
+    K5's output c, and the cells p its backward reads around a signal's
+    cell are those whose window holds that cell."""
+    import torch
+
+    x = torch.nn.functional.pad(mask.float()[:, None], (W - 1 - mode, mode))
+    return torch.nn.functional.max_pool1d(x, W, 1)[:, 0] > 0
+
+
+def kernel_rows(by_bounce: list, k5: dict) -> dict:
+    """A path's kernels after phase 9: per_launch over the bounces for the
+    trace kernels, K5 and its backward (one launch a batch) as they are."""
+    rows = {k: per_launch([b[k] for b in by_bounce]) for k in by_bounce[0]}
+    for k, v in k5.items():
+        rows[k] = dict(v, ms_by_bounce=[v["ms"]])
+    return rows
+
+
 def bin_vs_plain(cell, s, weights, mode, n_cells: int, reps: int) -> dict:
-    """K5 against its plain version; its bound counts the (cell, strength)
-    inputs and the f32 image once, and 2 operations per tap and cell."""
+    """K5 and its backward against their plain versions, bit for bit
+    (bin_fwd_vs_plain, then bin_bwd_vs_plain on the forward's output)."""
+    wt = None if weights is None else tuple(float(x) for x in weights)
+    kw = dict(n_cells=n_cells, combine="sum", weights=wt, w_mode=mode)
+    fwd, got = bin_fwd_vs_plain(cell, s, kw, reps)
+    return {"bin": fwd, "bin_bwd": bin_bwd_vs_plain(cell, s, got, kw, reps)}
+
+
+def bin_fwd_vs_plain(cell, s, kw: dict, reps: int) -> tuple:
+    """K5's forward against _bin_plain, bit for bit, for bin_signals'
+    keyword arguments kw (combine "sum"); returns (its row, the kernel's
+    output). The bound counts what these inputs need: the (cell, strength)
+    inputs read and the f32 image written once, and 2 operations a tap term
+    whose point value is nonzero (window_share of the cells have such a
+    term in their tap window, terms_per_window of them on average)."""
     import torch
 
     from radarays_ros_tpu_torch.image.cuda_draw import _bin_plain, bin_signals
 
-    kw = dict(n_cells=n_cells, combine="sum", weights=weights, w_mode=mode)
+    n_cells, wt, mode = kw["n_cells"], kw["weights"], kw["w_mode"]
     got = bin_signals(cell, s, **kw)
     want = _bin_plain(cell, s, **kw)
-    err = max_abs(got, want)
-    check(err <= 1e-6 * float(want.abs().max()), f"K5 bin: error {err}")
-    taps = 1 if weights is None else len(weights)
+    fwd_bits = torch.equal(got.view(torch.int32), want.view(torch.int32))
+    check(fwd_bits, f"K5 bin: not bitwise ({max_abs(got, want)})")
+    W = 1 if wt is None else len(wt)
+    point = _bin_plain(cell, s, n_cells=n_cells, combine="sum")
+    windows = tap_windows(point != 0, W, mode)
+    # a nonzero cell src is a term of the outputs [src - mode, src - mode
+    # + W - 1] inside the row
+    src = (point != 0).nonzero()[:, 1]
+    terms = int((torch.clamp(src - mode + W - 1, max=n_cells - 1)
+                 - torch.clamp(src - mode, min=0) + 1).sum())
     rows = cell.shape[0]
-    return dict(max_abs_err=err, bitwise=bool(torch.equal(got, want)),
-                ms=cuda_ms(lambda: bin_signals(cell, s, **kw), reps),
-                plain_ms=cuda_ms(lambda: _bin_plain(cell, s, **kw), 2),
-                **bound(2 * taps * rows * n_cells,
-                        cell.numel() * 8 + rows * n_cells * 4))
+    fwd = timed(dict(max_abs_err=0.0, bitwise=fwd_bits,
+                     window_share=float(windows.float().mean()),
+                     terms_per_window=terms / max(int(windows.sum()), 1),
+                     plain_ms=cuda_ms(lambda: _bin_plain(cell, s, **kw), 2),
+                     **bound(2 * terms,
+                             cell.numel() * 8 + rows * n_cells * 4)),
+                lambda: bin_signals(cell, s, **kw), reps, "bin")
+    return fwd, got
+
+
+def bin_bwd_vs_plain(cell, s, got, kw: dict, reps: int) -> dict:
+    """K5's backward kernel, for a fixed random cotangent on the forward's
+    output got, against _bin_bwd and _bin_bwd_signals, bit for bit. The
+    bound: 8 bytes read and 4 written a signal, the cotangent cells in some
+    valid signal's window read once, 2 operations a tap a valid signal."""
+    import torch
+
+    from radarays_ros_tpu_torch.image.cuda_draw import (_bin_bwd,
+                                                        _bin_bwd_signals,
+                                                        bin_bwd)
+
+    n_cells, wt, mode = kw["n_cells"], kw["weights"], kw["w_mode"]
+    W = 1 if wt is None else len(wt)
+    rows = cell.shape[0]
+    g = torch.randn(got.shape, device=got.device,
+                    generator=torch.Generator(got.device).manual_seed(1))
+    ds = bin_bwd(cell, s, got, g, **kw)
+    for plain in (_bin_bwd, _bin_bwd_signals):
+        ref = plain(cell, s, got, g, **kw)
+        bits = torch.equal(ds.view(torch.int32), ref.view(torch.int32))
+        check(bits, f"K5 backward vs {plain.__name__}: not bitwise "
+                    f"({max_abs(ds, ref)})")
+    ok = (cell >= 0) & (cell < n_cells)
+    hit = torch.zeros(rows, n_cells + 1, dtype=torch.bool, device=cell.device)
+    hit.scatter_(1, torch.where(ok, cell, n_cells).long(), True)
+    read = tap_windows(hit[:, :n_cells], W, mode)
+    return timed(dict(max_abs_err=0.0, bitwise=True,
+                      plain_ms=cuda_ms(lambda: _bin_bwd(cell, s, got, g,
+                                                        **kw), 2),
+                      signals_plain_ms=cuda_ms(lambda: _bin_bwd_signals(
+                          cell, s, got, g, **kw), 2),
+                      **bound(2 * W * int(ok.sum()),
+                              cell.numel() * 12 + int(read.sum()) * 4)),
+                 lambda: bin_bwd(cell, s, got, g, **kw), reps, "bin_bwd")
 
 
 def kaist_setup(device, n_buildings: int = 83000):
@@ -455,12 +631,12 @@ def kaist_tensors(host, n_objects: int, device):
 
 def counters():
     """Every kernel wrapper of the port, by kernel name."""
-    from radarays_ros_tpu_torch.image.cuda_draw import bin_signals
+    from radarays_ros_tpu_torch.image.cuda_draw import bin_bwd, bin_signals
     from radarays_ros_tpu_torch.trace import cuda_trace as CT
 
     return {"sweep": CT.sweep, "prep_hier": CT.prep_hier,
             "coarse_words": CT.coarse_words, "prep_flat": CT.prep_flat,
-            "bin": bin_signals}
+            "bin": bin_signals, "bin_bwd": bin_bwd}
 
 
 def zero_counts() -> dict:
@@ -474,25 +650,169 @@ def read_counts(wrappers) -> dict:
     return {k: fn.launches for k, fn in wrappers.items()}
 
 
+def batch_poses():
+    """The poses of a frames batch: BATCH frames 0.5 m apart in x."""
+    import numpy as np
+    import torch
+
+    from radarays_ros_tpu_torch.utils.transforms import make_pose
+
+    return torch.from_numpy(np.stack(
+        [make_pose([0.5 * f, 0.25 * f, 2.0]) for f in range(BATCH)]))
+
+
+def batch_waves(params, cfg, poses, gen, dev):
+    """A batch's starting waves, the cone drawn from generator gen:
+    (waves, sensor_pos, the cone's local directions)."""
+    import torch
+
+    from radarays_ros_tpu_torch.sim import pipeline as P
+    from radarays_ros_tpu_torch.wave.cone import sample_cone_local
+
+    local = torch.stack([sample_cone_local(
+        gen, params.beam_width, cfg.n_samples, cfg.beam_sample_dist,
+        cfg.beam_sample_dist_normal_p_in_cone) for _ in range(poses.shape[0])])
+    return (*P.start_waves(params, cfg, poses, local_dirs=local, device=dev),
+            local)
+
+
+def bounce_rays(st, params, cfg, waves, sensor_pos):
+    """The batch's bounces one by one through the pipeline's _bounce:
+    yields (pass_id, waves, o, d, budget), the rays and budgets in its
+    ray-major order."""
+    import torch
+
+    from radarays_ros_tpu_torch.sim import pipeline as P
+
+    def rm(x):
+        return x.movedim(0, 2).reshape(-1, *x.shape[3:]).contiguous()
+
+    for pass_id in range(cfg.n_reflections):
+        yield (pass_id, waves, rm(waves.orig), rm(waves.dir),
+               rm(P.trace_budget(cfg, waves)))
+        with torch.no_grad():
+            waves, _ = P._bounce(cfg, params, st, waves, sensor_pos, pass_id)
+
+
+def bin_inputs(st, params, cfg, waves, sensor_pos):
+    """K5's inputs for a batch's signals, as image/draw.py hands them to
+    bin_signals: (cell, s), invalid signals at cell n_cells with s 0."""
+    import torch
+
+    from radarays_ros_tpu_torch.image.draw import bin_cells
+    from radarays_ros_tpu_torch.sim import pipeline as P
+
+    with torch.no_grad():
+        times, strengths, valid = P.collect_signals(st, params, cfg, waves,
+                                                    sensor_pos)
+    N, A = times.shape[:2]
+    c = bin_cells(times.reshape(N * A, -1), cfg.resolution)
+    ok = valid.reshape(N * A, -1) & (c >= 0) & (c < cfg.n_cells)
+    return (torch.where(ok, c, cfg.n_cells).to(torch.int32).contiguous(),
+            torch.where(ok, strengths.reshape(N * A, -1), 0.0).contiguous())
+
+
+def batch_profile(run) -> dict:
+    """One call of run() under torch.profiler (CPU and CUDA activity): the
+    device's kernels, copies by kind (those from or to pageable host
+    memory synchronize the host) and by the host op that issued them, its
+    busy share of the window from its first to its last event, the host's
+    synchronizing runtime calls, and the memcpy runtime calls made inside
+    bin_signals (its autograd Function, _Bin)."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    evs = prof.events()
+    dev = [e for e in evs if e.device_type == DeviceType.CUDA]
+    cpu = [e for e in evs if e.device_type == DeviceType.CPU]
+    copies = collections.Counter(e.name for e in dev
+                                 if e.name.startswith("Memcpy"))
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in dev):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    window = end - min(e.time_range.start for e in dev)
+
+    def chain(e):
+        names = []
+        while e is not None and len(names) < 3:
+            names.append(e.name)
+            e = e.cpu_parent
+        return " < ".join(names)
+
+    # (the profiler's own buffer marker lists the copies it interrupts)
+    by_op = collections.Counter(chain(e) for e in cpu for k in e.kernels
+                                if k.name.startswith("Memcpy")
+                                and e.name != "Activity Buffer Request")
+    by_op["(no host op)"] = sum(copies.values()) - sum(by_op.values())
+    return dict(
+        kernels=sum(not e.name.startswith(("Memcpy", "Memset"))
+                    for e in dev),
+        copies=dict(copies), copies_by_op=dict(by_op),
+        pageable_copies=sum(n for k, n in copies.items() if "Pageable" in k),
+        sync_calls=dict(collections.Counter(
+            e.name for e in cpu if e.name in (
+                "cudaStreamSynchronize", "cudaDeviceSynchronize",
+                "cudaEventSynchronize", "cudaMemcpy"))),
+        device_busy_ms=busy / 1e3, device_window_ms=window / 1e3,
+        device_idle_share=1.0 - busy / window,
+        bin_calls=sum(e.name == "_Bin" for e in cpu),
+        memcpy_calls_in_bin=memcpy_calls_in(cpu, "_Bin"))
+
+
+def memcpy_calls_in(cpu, op: str) -> int:
+    """The memcpy runtime calls (cudaMemcpy*) that the host made inside the
+    time ranges of the host op `op`, among a profile's CPU events: a copy
+    that op issued, whatever the profiler attributes the device copy to."""
+    spans = [e.time_range for e in cpu if e.name == op]
+    return sum(e.name.startswith("cudaMemcpy") and any(
+        r.start <= e.time_range.start <= r.end for r in spans) for e in cpu)
+
+
+def copy_check_control(dev) -> int:
+    """The positive control of the copy check: memcpy_calls_in over a range
+    named as bin_signals' Function (_Bin) that holds the copy K5's wrapper
+    once made on every call (its taps, a pageable numpy array, to
+    the device). A check that sees the copy counts at least 1."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    taps = np.linspace(0.0, 1.0, 35, dtype=np.float32)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("_Bin"):
+            torch.as_tensor(taps, device=dev)
+        torch.cuda.synchronize()
+    return memcpy_calls_in([e for e in prof.events()
+                            if e.device_type == DeviceType.CPU], "_Bin")
+
+
 def frames_phase(tag: str, st, params, cfg, dev, expect_zero=(),
                  min_column_share: float = 0.5):
     """Timed KAIST batches on one scene (the launch count of every kernel
     over the timed run; those in expect_zero must stay at 0, the others
     must launch; every frame has signal in at least min_column_share of
-    its columns), each kernel of the path vs its plain version at the
-    batch's first-bounce shapes, and one frame through the kernels and
-    through the plain versions under the frame contract. Returns (frame
-    figures, launches, kernels vs plain, frame vs plain)."""
-    import numpy as np
+    its columns), each kernel of the path vs its plain version on each
+    bounce of a batch, and one frame through the kernels and through the
+    plain versions under the frame contract; the batch profile and the
+    kernels' times are queued for phase 9. Returns (frame figures,
+    launches, the trace kernels vs plain by bounce, K5 and its backward vs
+    plain, frame vs plain)."""
     import torch
 
-    from radarays_ros_tpu_torch.image.draw import bin_cells
     from radarays_ros_tpu_torch.sim import pipeline as P
-    from radarays_ros_tpu_torch.utils.transforms import make_pose
-    from radarays_ros_tpu_torch.wave.cone import sample_cone_local
 
-    poses = torch.from_numpy(np.stack(
-        [make_pose([0.5 * f, 0.25 * f, 2.0]) for f in range(BATCH)]))
+    poses = batch_poses()
     gen = torch.Generator(dev).manual_seed(0)
 
     def run_batch():
@@ -534,24 +854,15 @@ def frames_phase(tag: str, st, params, cfg, dev, expect_zero=(),
         mean_pixel=float(res.image_u8.float().mean()))
     log(f"[{tag} frames] {json.dumps(frames)}")
     del warm, res
+    DEFERRED.append(lambda: frames.update(profile=batch_profile(run_batch)))
 
-    # kernels vs plain on each bounce's rays: the batch's bounces one by
-    # one through the pipeline's _bounce, the rays in its ray-major order
-    local = torch.stack([sample_cone_local(
-        gen, params.beam_width, cfg.n_samples, cfg.beam_sample_dist,
-        cfg.beam_sample_dist_normal_p_in_cone) for _ in range(BATCH)])
-    waves0, sensor_pos = P.start_waves(params, cfg, poses, local_dirs=local,
-                                       device=dev)
-
-    def rm(x):
-        return x.movedim(0, 2).reshape(-1, *x.shape[3:]).contiguous()
-
+    # kernels vs plain on each bounce's rays
+    waves0, sensor_pos, local = batch_waves(params, cfg, poses, gen, dev)
     by_bounce = []
-    waves = waves0
-    for pass_id in range(cfg.n_reflections):
-        budget = P.trace_budget(cfg, waves)
-        mb = kernels_vs_plain(st, rm(waves.orig), rm(waves.dir), rm(budget),
-                              rb=cfg.trace_ray_block, reps=10)
+    for pass_id, waves, o, d, budget in bounce_rays(st, params, cfg, waves0,
+                                                    sensor_pos):
+        mb = kernels_vs_plain(st, o, d, budget, rb=cfg.trace_ray_block,
+                              reps=10)
         s = mb["sweep"]
         line = dict(
             bounce=pass_id + 1, rays=int(waves.valid.numel()),
@@ -566,31 +877,20 @@ def frames_phase(tag: str, st, params, cfg, dev, expect_zero=(),
             visits_needed_lane_max=s["visits_needed_lane_max"],
             chunks_kept_lane_mean=s["chunks_kept_lane_mean"],
             chunks_kept_lane_max=s["chunks_kept_lane_max"],
-            **{k: {kk: v[kk] for kk in ("bitwise", "ms", "plain_ms",
-                                        "bound_ms", "bound_by")}
+            **{k: {kk: v[kk] for kk in ("bitwise", "plain_ms", "bound_ms",
+                                        "bound_by")}
                for k, v in mb.items()})
         log(f"[{tag} bounce {pass_id + 1}] {json.dumps(line)}")
         by_bounce.append(mb)
-        with torch.no_grad():
-            waves, _ = P._bounce(cfg, params, st, waves, sensor_pos, pass_id)
-    mk = {k: per_launch([b[k] for b in by_bounce]) for k in by_bounce[0]}
 
-    times, strengths, valid = P.collect_signals(st, params, cfg, waves0,
-                                                sensor_pos)
-    N, A = times.shape[:2]
-    c = bin_cells(times.reshape(N * A, -1), cfg.resolution)
-    ok = valid.reshape(N * A, -1) & (c >= 0) & (c < cfg.n_cells)
+    cell, strength = bin_inputs(st, params, cfg, waves0, sensor_pos)
     w, mode = cfg.denoiser()
-    mk["bin"] = bin_vs_plain(
-        torch.where(ok, c, cfg.n_cells).to(torch.int32).contiguous(),
-        torch.where(ok, strengths.reshape(N * A, -1), 0.0).contiguous(),
-        w, mode, cfg.n_cells, reps=20)
-    mk["bin"]["ms_by_bounce"] = [mk["bin"]["ms"]]     # one launch a batch
-    log(f"[{tag} kernels vs plain, per launch over the bounces: "
-        f"{int(np.prod(waves0.batch_shape))} rays, {N * A} rows] "
-        + json.dumps({k: {kk: v[kk] for kk in (
-            "bitwise", "max_abs_err", "ms", "ms_by_bounce", "plain_ms",
-            "bound_ms", "bound_by")} for k, v in mk.items()}))
+    k5 = bin_vs_plain(cell, strength, w, mode, cfg.n_cells, reps=20)
+    log(f"[{tag} K5 vs plain: {cell.shape[0]} rows] " + json.dumps(
+        {k: {kk: v[kk] for kk in ("bitwise", "plain_ms", "bound_ms",
+                                  "bound_by", "window_share",
+                                  "terms_per_window") if kk in v}
+         for k, v in k5.items()}))
 
     # one frame through the kernels and through the plain versions
     pose = poses[0]
@@ -608,7 +908,7 @@ def frames_phase(tag: str, st, params, cfg, dev, expect_zero=(),
     fvp = dict(kernel_frame_s=kernel_frame_s, plain_frame_s=plain_frame_s,
                **frame_contract(fk, fp))
     log(f"[{tag} frame kernels vs plain] {json.dumps(fvp)}")
-    return frames, launches, mk, fvp
+    return frames, launches, by_bounce, k5, fvp
 
 
 def fit_setup(device):
@@ -687,8 +987,6 @@ def fit_phase(dev) -> dict:
 
     import torch
 
-    from radarays_ros_tpu_torch.image.cuda_draw import _bin_bwd
-    from radarays_ros_tpu_torch.image.draw import bin_cells
     from radarays_ros_tpu_torch.opti.checkpoint import (load_checkpoint,
                                                         save_checkpoint)
     from radarays_ros_tpu_torch.opti.optimize import (default_objective,
@@ -730,7 +1028,8 @@ def fit_phase(dev) -> dict:
     second_s = time.perf_counter() - t1
     launches = read_counts(wrappers)
     hist = list(res1.history) + list(res2.history)
-    check(all(launches[k] > 0 for k in ("prep_flat", "sweep", "bin"))
+    check(all(launches[k] > 0 for k in ("prep_flat", "sweep", "bin",
+                                        "bin_bwd"))
           and launches["prep_hier"] == 0 and launches["coarse_words"] == 0,
           f"fit launches {launches}")
     check(extras["step"] == half, "checkpoint step")
@@ -774,23 +1073,11 @@ def fit_phase(dev) -> dict:
     with torch.no_grad():
         waves, sensor_pos = P.start_waves(start, cfg, poses,
                                           cone_draws=draws, device=dev)
-        times, strengths, valid = P.collect_signals(st, start, cfg, waves,
-                                                    sensor_pos)
-    N, A = times.shape[:2]
-    c = bin_cells(times.reshape(N * A, -1), cfg.resolution)
-    ok = valid.reshape(N * A, -1) & (c >= 0) & (c < cfg.n_cells)
-    cell = torch.where(ok, c, cfg.n_cells).to(torch.int32).contiguous()
-    s = torch.where(ok, strengths.reshape(N * A, -1), 0.0).contiguous()
+    cell, s = bin_inputs(st, start, cfg, waves, sensor_pos)
     w, mode = cfg.denoiser()
     k5 = bin_vs_plain(cell, s, w, mode, cfg.n_cells, reps=20)
-    g = torch.randn(N * A, cfg.n_cells, device=dev,
-                    generator=torch.Generator(dev).manual_seed(1))
-    wt = tuple(float(x) for x in w)
-    k5["backward_ms"] = cuda_ms(lambda: _bin_bwd(
-        cell, s, None, g, n_cells=cfg.n_cells, combine="sum", weights=wt,
-        w_mode=mode), 20)
-    k5["rows"], k5["signals_per_row"] = N * A, int(cell.shape[1])
-    info["bin_fit_shapes"] = k5
+    info["bin_fit_shapes"] = dict(k5, rows=cell.shape[0],
+                                  signals_per_row=cell.shape[1])
     long = ("grad_kernel", "grad_plain", "history_psnr_db")
     log(f"[7 fit] {json.dumps({k: v for k, v in info.items() if k not in long})}")
     return info
@@ -1064,7 +1351,7 @@ def cli_phase(dev, scene5, host5, cfg, info5, scene10) -> dict:
                  "--out-config", path("fit.yaml")])
             info["optimize_launches"] = read_counts(wrappers)
             check(all(info["optimize_launches"][k] > 0
-                      for k in ("sweep", "prep_flat", "bin"))
+                      for k in ("sweep", "prep_flat", "bin", "bin_bwd"))
                   and info["optimize_launches"]["prep_hier"] == 0,
                   f"optimize launches {info['optimize_launches']}")
             info["optimize_initial_psnr_db"] = float(match(
@@ -1092,6 +1379,51 @@ def cli_phase(dev, scene5, host5, cfg, info5, scene10) -> dict:
     return info
 
 
+def kernel_times(dev, smi: str) -> dict:
+    """The --kernel-times run, through the port that sys.path finds first
+    (main puts ROOT there): for each frame path (phase 5's ~1M-triangle
+    scene, phase 6's 10k companion) one KAIST batch, every trace kernel of
+    the path on each bounce and K5's forward (kernels_vs_plain,
+    bin_fwd_vs_plain: checked bit for bit, timed by kernel_ms), and one
+    batch under the profiler (batch_profile: copies inside bin_signals).
+    Every input comes from fixed seeds, so checkouts run in turns in one
+    call compare their kernels on one card."""
+    import torch
+
+    from radarays_ros_tpu_torch import cuda_build
+    from radarays_ros_tpu_torch.image import cuda_draw
+    from radarays_ros_tpu_torch.sim import pipeline as P
+
+    b = cuda_build.build()
+    out = dict(package=os.path.dirname(os.path.dirname(cuda_draw.__file__)),
+               gpu=smi, build_s=b.seconds)
+    for tag, n_buildings in (("5", 83000), ("6", 800)):
+        _, st, params, cfg, _, _ = kaist_setup(dev, n_buildings=n_buildings)
+        poses = batch_poses()
+        gen = torch.Generator(dev).manual_seed(0)
+        waves0, sensor_pos, _ = batch_waves(params, cfg, poses, gen, dev)
+        by_bounce = [kernels_vs_plain(st, o, d, budget,
+                                      rb=cfg.trace_ray_block, reps=50)
+                     for _, _, o, d, budget in bounce_rays(
+                         st, params, cfg, waves0, sensor_pos)]
+        cell, s = bin_inputs(st, params, cfg, waves0, sensor_pos)
+        w, mode = cfg.denoiser()
+        kw = dict(n_cells=cfg.n_cells, combine="sum",
+                  weights=tuple(float(x) for x in w), w_mode=mode)
+        k5 = {"bin": bin_fwd_vs_plain(cell, s, kw, reps=50)[0]}
+        while DEFERRED:
+            DEFERRED.pop(0)()
+        rows = kernel_rows(by_bounce, k5)
+        out[tag] = dict(
+            profile=batch_profile(lambda: P.simulate_frames(
+                st, params, cfg, poses, generator=gen)),
+            kernels={k: {kk: v[kk] for kk in (
+                "ms", "wrapper_ms", "ms_source", "ms_by_bounce", "bound_ms",
+                "plain_ms")} for k, v in rows.items()})
+        del st
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1099,6 +1431,16 @@ def main() -> int:
         print("chip_smoke: no CUDA device — the port's kernels run only on "
               "an NVIDIA GPU", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--kernel-times"]:
+        root = os.path.abspath(sys.argv[2]) if len(sys.argv) > 2 else HERE
+        sys.path.insert(0, root)
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout.strip().splitlines()[0]
+        print(json.dumps({"kernel_times": kernel_times(torch.device("cuda"),
+                                                       smi)}), flush=True)
+        return 0
     import numpy as np
 
     import radarays_ros_tpu_torch  # noqa: F401  (sets the TF32 switches)
@@ -1154,14 +1496,14 @@ def main() -> int:
                             .astype(np.int32)).to(dev)
     s = torch.from_numpy(rng.exponential(1.0, (400, 200))
                          .astype(np.float32)).to(dev)
-    gk["bin"] = bin_vs_plain(cell, s, w, mode, 3424, reps=20)
+    gk.update(bin_vs_plain(cell, s, w, mode, 3424, reps=20))
     details["kernels_gate"] = dict(n_triangles=gate.n_triangles,
                                    n_chunks=gate.n_chunks,
-                                   host_build_s=gate_build, **gk)
+                                   host_build_s=gate_build, kernels=gk)
     log(f"[3 kernels vs plain, gate shapes: {gate.n_triangles} tris, "
         f"{gate.n_chunks} chunks, {n_rays} rays] "
         + json.dumps({k: {kk: v[kk] for kk in ("bitwise", "max_abs_err",
-                                              "ms", "plain_ms")}
+                                              "plain_ms")}
                       for k, v in gk.items()}))
 
     # ---- 4. trace gate
@@ -1192,21 +1534,22 @@ def main() -> int:
     # ---- 5. frames on the main path
     scene, st, params, cfg, info, host5 = kaist_setup(dev)
     log(f"[5 scene] {json.dumps(info)}")
-    frames, launches, mk, fvp = frames_phase("5", st, params, cfg, dev,
-                                             expect_zero=("prep_flat",))
-    details.update(frames=dict(frames, gpu=smi), kernels_main_path=mk,
-                   frame_vs_plain=fvp)
+    frames, launches, bb5, k5_5, fvp = frames_phase(
+        "5", st, params, cfg, dev, expect_zero=("prep_flat", "bin_bwd"))
+    frames["gpu"] = smi
+    details.update(frames=frames, frame_vs_plain=fvp)
     scene5, cfg5, info5 = scene, cfg, info
     del st
 
     # ---- 6. frames on the 10k companion scene (the flat prep K4)
     scene, st, params, cfg, info, _ = kaist_setup(dev, n_buildings=800)
     log(f"[6 scene] {json.dumps(info)}")
-    frames10, launches10, mk10, fvp10 = frames_phase(
-        "6", st, params, cfg, dev, expect_zero=("prep_hier", "coarse_words"),
+    frames10, launches10, bb6, k5_6, fvp10 = frames_phase(
+        "6", st, params, cfg, dev,
+        expect_zero=("prep_hier", "coarse_words", "bin_bwd"),
         min_column_share=0.1)      # 800 buildings over 600 m x 600 m
-    details.update(frames_10k=dict(frames10, gpu=smi), kernels_10k=mk10,
-                   frame_vs_plain_10k=fvp10)
+    frames10["gpu"] = smi
+    details.update(frames_10k=frames10, frame_vs_plain_10k=fvp10)
     scene10 = scene
     del scene, st
 
@@ -1219,34 +1562,74 @@ def main() -> int:
     details["cli"]["gpu"] = smi
     del scene5, host5, scene10
 
+    # ---- 9. the profiler's figures, after every end-to-end figure
+    t0 = time.perf_counter()
+    while DEFERRED:
+        DEFERRED.pop(0)()
+    control = copy_check_control(dev)
+    details["copy_check_control"] = control
+    log(f"[9 copy check, positive control] memcpy_calls_in_bin {control}")
+    check(control >= 1, "the copy check missed a copy made inside _Bin")
+    for tag, fr in (("5", frames), ("6", frames10)):
+        log(f"[9 batch profile, phase {tag}] {json.dumps(fr['profile'])}")
+        check(fr["profile"]["bin_calls"] > 0
+              and fr["profile"]["memcpy_calls_in_bin"] == 0,
+              "bin_signals issued a copy")
+    times = ("ms", "wrapper_ms", "ms_source")
+    log("[9 kernel times, gate shapes] " + json.dumps(
+        {k: {kk: v[kk] for kk in times} for k, v in gk.items()}))
+    for tag, bb in (("5", bb5), ("6", bb6)):
+        for i, mb in enumerate(bb):
+            log(f"[9 kernel times, phase {tag} bounce {i + 1}] " + json.dumps(
+                {k: {kk: v[kk] for kk in times} for k, v in mb.items()}))
+    mk, mk10 = kernel_rows(bb5, k5_5), kernel_rows(bb6, k5_6)
+    details.update(kernels_main_path=mk, kernels_10k=mk10)
+    for tag, rows in (("5", mk), ("6", mk10),
+                      ("7", details["fit"]["bin_fit_shapes"])):
+        log(f"[9 kernel times, phase {tag}, per launch] " + json.dumps(
+            {k: {kk: v[kk] for kk in (*times, "plain_ms", "bound_ms",
+                                      "bound_by") if kk in v}
+             for k, v in rows.items() if isinstance(v, dict)}))
+    details["profiler_phase_s"] = time.perf_counter() - t0
+
     source = {"sweep": "radarays_ros_tpu_torch/csrc/sweep.cu",
               "prep_hier": "radarays_ros_tpu_torch/csrc/prep.cu",
               "coarse_words": "radarays_ros_tpu_torch/csrc/prep.cu",
               "prep_flat": "radarays_ros_tpu_torch/csrc/prep.cu",
-              "bin": "radarays_ros_tpu_torch/csrc/bin.cu"}
+              "bin": "radarays_ros_tpu_torch/csrc/bin.cu",
+              "bin_bwd": "radarays_ros_tpu_torch/csrc/bin.cu"}
     replaces = {
         "sweep": "radarays_ros_tpu/trace/pallas_trace.py:99",
         "prep_hier": "radarays_ros_tpu/trace/pallas_trace.py:523",
         "coarse_words": "radarays_ros_tpu/trace/pallas_trace.py:584",
         "prep_flat": "radarays_ros_tpu/trace/pallas_trace.py:488",
-        "bin": "radarays_ros_tpu/image/pallas_draw.py:33"}
-    # each row from the path whose timed run and shapes measured it: K4
-    # runs only on scenes under 256 supergroups (phase 6), the rest on the
-    # 1M-triangle frames (phase 5)
-    rows = {k: (launches10, mk10) if k == "prep_flat" else (launches, mk)
-            for k in source}
-    # ms, plain_ms and bound_ms are per launch, averaged over the launches
-    # of one batch (K1-K4: one a bounce; K5: one a batch)
+        "bin": "radarays_ros_tpu/image/pallas_draw.py:33",
+        "bin_bwd": "radarays_ros_tpu/image/pallas_draw.py:111"}
+    # each row from the path whose run and shapes measured it: K4 runs only
+    # on scenes under 256 supergroups (phase 6), K5's backward only in the
+    # fit (phase 7: launches per Adam step), the rest on the 1M-triangle
+    # frames (phase 5)
+    fit = details["fit"]
+    rows = {k: (launches10, mk10, TIMED_BATCHES, "6 frames at 10k")
+            if k == "prep_flat" else (launches, mk, TIMED_BATCHES,
+                                      "5 frames at 1M") for k in source}
+    rows["bin_bwd"] = (fit["launches"], fit["bin_fit_shapes"], FIT_STEPS,
+                       "7 fit, per Adam step")
+    # ms (device time), wrapper_ms, plain_ms and bound_ms are per launch,
+    # averaged over the launches of one batch (K1-K4: one a bounce; K5:
+    # one a batch)
     table = []
     for k in source:
-        n, m = rows[k][0][k], rows[k][1][k]
+        n, m, per, path = rows[k][0][k], rows[k][1][k], *rows[k][2:]
         table.append(dict(
             name=k, route="cuda", source=source[k], replaces=replaces[k],
-            launches=n, launches_per_batch=n / TIMED_BATCHES,
+            path=path, launches=n, launches_per_batch=n / per,
             max_abs_err=m["max_abs_err"], ms=m["ms"],
-            ms_by_bounce=m["ms_by_bounce"], plain_ms=m["plain_ms"],
-            bound_ms=m["bound_ms"], bound_by=m["bound_by"],
-            library_ms=None, library_note=LIBRARY_NOTE[k]))
+            wrapper_ms=m["wrapper_ms"], ms_source=m["ms_source"],
+            ms_by_bounce=m.get("ms_by_bounce", [m["ms"]]),
+            plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
+            bound_by=m["bound_by"], library_ms=None,
+            library_note=LIBRARY_NOTE[k]))
     details["kernels"] = table
     details["total_s"] = time.perf_counter() - t_main
     log(f"[total] {details['total_s']:.1f} s from phase 1 to the table")

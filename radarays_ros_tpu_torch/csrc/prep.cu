@@ -12,9 +12,18 @@
 //  * K3 rr_coarse_words: one flag per (ray tile, supergroup of 32 chunks) —
 //    does any lane of the tile keep the supergroup's AABB? — packed into
 //    int32 words, bit s of word w for supergroup 32w + s (bit 31 is the
-//    sign bit). Grid (tiles, words); each thread holds a 32-bit mask of its
-//    lane's keeps, ORed across the block with warp reductions and a shared
-//    atomicOr.
+//    sign bit). CTAs of 128 lanes, each covering all of its lanes'
+//    supergroups: the supergroup box table staged in shared memory as
+//    float4, in slices of up to 1,536 supergroups (48 KB; the main path's
+//    128 take one, and a larger table is walked slice by slice, so any
+//    size launches), each ray loaded once, a 32-bit mask of one word's
+//    keeps per thread, one __reduce_or_sync per word and warp, and a global
+//    atomicOr into the tile's word (zeroed by the entry point before the
+//    launch; OR is order-free, so the words are exact). A warp never spans
+//    two tiles (the tile is a multiple of 32 lanes), so the tile stays the
+//    reference's unit of a word and K2 reads the words unchanged. On the
+//    main path (80 tiles of 1024 lanes) that is 640 CTAs, one wave on 132
+//    SMs.
 //  * K2 rr_prep_hier: the (ray tile, set supergroup) pairs run in
 //    parallel across the card, one CTA each (256 threads, up to 4 lanes a
 //    thread), each slab-testing its lanes against the supergroup's 32 chunk
@@ -51,6 +60,10 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+// K3's supergroups staged in shared memory at a time (48 KB of float4 lo
+// and hi: no opt-in to a larger block)
+#define RR_COARSE_SLICE 1536
+
 namespace {
 
 struct Ray {
@@ -85,29 +98,50 @@ __device__ __forceinline__ bool slab_keep(const float* lo, const float* hi,
   return (t_far >= *tn0) && (t_near <= ray.cap) && (ray.cap > 0.f);
 }
 
-// K3: grid (n_tiles, n_super / 32), block = rbt threads (one lane each)
-__global__ void coarse_words_kernel(const float* __restrict__ slo,
-                                    const float* __restrict__ shi,
-                                    const float* __restrict__ o,
-                                    const float* __restrict__ idv,
-                                    const float* __restrict__ bud, int rbt,
-                                    float t_max, int n_words,
-                                    int* __restrict__ words) {
-  __shared__ unsigned int acc;
-  const int g = blockIdx.x, w = blockIdx.y, tid = threadIdx.x;
-  if (tid == 0) acc = 0u;
-  __syncthreads();
-  const Ray ray = load_ray(o, idv, bud, (long long)g * rbt + tid, t_max);
-  unsigned int mask = 0u;
-  for (int s = 0; s < 32; ++s) {
-    const int box = w * 32 + s;
-    float tn0;
-    if (slab_keep(slo + 3 * box, shi + 3 * box, ray, &tn0)) mask |= 1u << s;
+// K3: 128 threads a CTA, one lane each, n_lanes / 128 CTAs (rounded up);
+// dynamic shared memory: a slice of up to RR_COARSE_SLICE supergroups,
+// float4 lo, then float4 hi; the table is walked slice by slice
+__global__ void __launch_bounds__(128)
+coarse_words_kernel(const float* __restrict__ slo,
+                    const float* __restrict__ shi, int n_super,
+                    const float* __restrict__ o,
+                    const float* __restrict__ idv,
+                    const float* __restrict__ bud, long long n_lanes,
+                    int rbt, float t_max, int* __restrict__ words) {
+  extern __shared__ float4 sm_box4[];
+  const int slice = min(n_super, RR_COARSE_SLICE);
+  float4* s_lo = sm_box4;
+  float4* s_hi = sm_box4 + slice;
+  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = r < n_lanes;         // whole warps: n_lanes % 32 == 0
+  // a lane past the last tile keeps no box (cap 0), so its warp ORs nothing
+  Ray ray = load_ray(o, idv, bud, live ? r : 0, t_max);
+  if (!live) ray.cap = 0.f;
+  int* wrow = words + (live ? r / rbt : 0) * (n_super >> 5);
+  for (int s0 = 0; s0 < n_super; s0 += slice) {
+    const int m = min(n_super - s0, slice);       // a multiple of 32
+    __syncthreads();                    // every warp is done with the last
+    for (int i = threadIdx.x; i < m; i += blockDim.x) {
+      const float* l = slo + 3 * (long long)(s0 + i);
+      const float* h = shi + 3 * (long long)(s0 + i);
+      s_lo[i] = make_float4(l[0], l[1], l[2], 0.f);
+      s_hi[i] = make_float4(h[0], h[1], h[2], 0.f);
+    }
+    __syncthreads();
+    for (int w = 0; w < m >> 5; ++w) {
+      unsigned int mask = 0u;
+#pragma unroll
+      for (int s = 0; s < 32; ++s) {
+        const float4 l4 = s_lo[w * 32 + s], h4 = s_hi[w * 32 + s];
+        const float lo[3] = {l4.x, l4.y, l4.z}, hi[3] = {h4.x, h4.y, h4.z};
+        float tn0;
+        if (slab_keep(lo, hi, ray, &tn0)) mask |= 1u << s;
+      }
+      mask = __reduce_or_sync(0xffffffffu, mask);
+      if ((threadIdx.x & 31) == 0 && mask)
+        atomicOr(&wrow[(s0 >> 5) + w], (int)mask);
+    }
   }
-  mask = __reduce_or_sync(0xffffffffu, mask);
-  if ((tid & 31) == 0 && mask) atomicOr(&acc, mask);
-  __syncthreads();
-  if (tid == 0) words[(long long)g * n_words + w] = (int)acc;
 }
 
 // K2: grid (n_tiles, n_super): one CTA per (ray tile, supergroup) pair,
@@ -221,18 +255,27 @@ __global__ void prep_flat_kernel(const float* __restrict__ lo,
 
 }  // namespace
 
-// slo/shi (n_super, 3) supergroup boxes, n_super % 32 == 0; o/idv (G*rbt,
-// 3); bud (G*rbt,). Output words (G, n_super / 32) int32.
+// slo/shi (n_super, 3) supergroup boxes, n_super % 32 == 0; o/idv
+// (G*rbt, 3); bud (G*rbt,). Output words (G, n_super / 32) int32, zeroed
+// here and then folded into by atomicOr.
 extern "C" int rr_coarse_words(const float* slo, const float* shi,
                                int n_super, const float* o, const float* idv,
                                const float* bud, int n_tiles, int rbt,
                                float t_max, int* words, cudaStream_t stream) {
-  if (n_super % 32 != 0 || rbt % 32 != 0 || rbt > 1024)
+  if (n_super % 32 != 0 || rbt % 32 != 0 || rbt < 32)
     return (int)cudaErrorInvalidValue;
   const int n_words = n_super / 32;
   if (n_tiles == 0 || n_words == 0) return cudaSuccess;
-  coarse_words_kernel<<<dim3(n_tiles, n_words), rbt, 0, stream>>>(
-      slo, shi, o, idv, bud, rbt, t_max, n_words, words);
+  const cudaError_t e = cudaMemsetAsync(
+      words, 0, (size_t)n_tiles * n_words * sizeof(int), stream);
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem = (size_t)(n_super < RR_COARSE_SLICE ? n_super
+                                                         : RR_COARSE_SLICE) *
+                      2 * sizeof(float4);
+  const long long n_lanes = (long long)n_tiles * rbt;
+  coarse_words_kernel<<<(unsigned)((n_lanes + 127) / 128), 128, smem,
+                        stream>>>(slo, shi, n_super, o, idv, bud, n_lanes,
+                                  rbt, t_max, words);
   return (int)cudaGetLastError();
 }
 

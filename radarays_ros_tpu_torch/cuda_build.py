@@ -41,6 +41,7 @@ _SIGNATURES = {
                      _P],
     "rr_prep_flat": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
     "rr_bin": [_P, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P],
+    "rr_bin_bwd": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P],
 }
 
 
@@ -48,7 +49,8 @@ class Build(NamedTuple):
     lib: ctypes.CDLL
     path: pathlib.Path
     seconds: float     # nvcc wall time; 0.0 when the library was cached
-    log: str           # nvcc/ptxas output (registers, shared memory, spills)
+    log: str           # nvcc/ptxas output (registers, shared memory, spills),
+                       # kept beside the library
 
 
 def _nvcc() -> str:
@@ -68,7 +70,8 @@ def build() -> Build:
         h.update(s.read_bytes())
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     path = _BUILD_DIR / f"libradarays_torch_kernels-{h.hexdigest()[:16]}.so"
-    seconds, log = 0.0, ""
+    log_path = path.with_suffix(".log")
+    seconds = 0.0
     if not path.exists():
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
         objs = [path.with_suffix(f".{s.stem}.{os.getpid()}.o") for s in srcs]
@@ -91,7 +94,9 @@ def build() -> Build:
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
                                f"{link.stdout}{link.stderr}")
+        log_path.write_text(log)
         os.replace(tmp, path)
+    log = log_path.read_text() if log_path.exists() else ""
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -107,9 +107,11 @@ def coarse_words(slo, shi, o, idv, bud, t_max: float, rbt: int):
                              dtypes=(torch.float32,) * 5)
     G = o.shape[0] // rbt
     S = slo.shape[0]
-    if S % 32 or o.shape[0] % rbt:
-        raise ValueError(f"coarse_words: {S} supergroups, {o.shape[0]} rays "
-                         f"for tile {rbt}")
+    if S % 32 or rbt % 32 or o.shape[0] % rbt:
+        raise ValueError(f"coarse_words: {S} supergroups (a multiple of 32), "
+                         f"{o.shape[0]} rays for tile {rbt} (a multiple of "
+                         "32)")
+    # rr_coarse_words zeroes the words, then ORs every warp's bits in
     words = torch.empty(G, S // 32, dtype=torch.int32, device=o.device)
     lib = cuda_build.build().lib
     cuda_build.check(lib.rr_coarse_words(

@@ -7,8 +7,8 @@ A CUDA kernel has no interpret mode, so these tests need an NVIDIA GPU
 
 Every kernel must agree with its plain version bit for bit: both round
 every product and sum separately, in the same order (-fmad=false build).
-The K5 Function's backward is plain torch on both devices; gradients are
-held to the plain version's autograd gradient.
+K5's backward kernel is held bit for bit to the reference's _bin_bwd and
+to its per-signal plain version.
 """
 
 import numpy as np
@@ -17,7 +17,10 @@ import torch
 
 from radarays_ros_tpu_torch.geom.primitives import make_urban_scene
 from radarays_ros_tpu_torch.geom.scene import Scene
-from radarays_ros_tpu_torch.image.cuda_draw import _bin_plain, bin_signals
+from radarays_ros_tpu_torch.image.cuda_draw import (_bin_bwd,
+                                                    _bin_bwd_signals,
+                                                    _bin_plain, bin_bwd,
+                                                    bin_signals)
 from radarays_ros_tpu_torch.image.denoise import build_denoiser
 from radarays_ros_tpu_torch.trace import cuda_trace as CT
 from radarays_ros_tpu_torch.trace.api import trace
@@ -152,22 +155,106 @@ def test_kernel_engine_matches_brute(scene, dev):
     torch.testing.assert_close(got.t[hit], ref.t[hit], rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("combine", ["sum", "max"])
-def test_bin_kernel_equals_plain(dev, combine):
+def _bin_case(combine, case, dev):
+    """(cell, s, bin kwargs) on the card; every signal has a nonzero
+    strength, those with a cell out of range too, so a kernel that let an
+    invalid signal into the row would differ. "uniform": 400 rows x 200
+    signals over 3,424 cells, 40 duplicates a row, some out of range.
+    "long": 40 rows x 2,500 signals (more than the kernel stages in shared
+    memory at a time) over 3,424 cells, half of them on 8 cells.
+    "clustered": as on the main path, 4 beams of 50 samples a row land
+    within a few cells each, plus 3 signals (N = 203, not a multiple of
+    32), over 13,000 cells (the row takes more than 48 KB of shared
+    memory); some rows are all invalid, some all zero, some beams at the
+    row's edges."""
     rng = np.random.default_rng(2)
-    A, N, n_cells = 400, 200, 3424
-    cell = rng.integers(-5, n_cells + 5, (A, N)).astype(np.int32)
-    cell[:, :40] = rng.integers(0, 8, (A, 40))          # duplicate cells
+    if case == "uniform":
+        A, N, n_cells = 400, 200, 3424
+        cell = rng.integers(-5, n_cells + 5, (A, N)).astype(np.int32)
+        cell[:, :40] = rng.integers(0, 8, (A, 40))          # duplicates
+    elif case == "long":
+        A, N, n_cells = 40, 2500, 3424
+        cell = rng.integers(-5, n_cells + 5, (A, N)).astype(np.int32)
+        cell[:, ::2] = rng.integers(100, 108, (A, N - N // 2))
+    else:
+        A, N, n_cells = 300, 203, 13000
+        base = rng.integers(0, n_cells, (A, 4))
+        base[:20] = rng.choice([0, 3, n_cells - 2, n_cells - 1], (20, 4))
+        spread = np.rint(rng.normal(0.0, 1.5, (A, 4, 50))).astype(np.int64)
+        cell = np.concatenate([(base[:, :, None] + spread).reshape(A, 200),
+                               rng.integers(-3, n_cells + 3, (A, 3))], 1)
+        cell = np.where(rng.uniform(size=(A, N)) < 0.1, n_cells, cell)
+        cell[40:50] = n_cells                              # all invalid
+        cell = cell.astype(np.int32)
     s = rng.exponential(1.0, (A, N)).astype(np.float32)
-    cell_t = torch.from_numpy(cell).to(dev)
-    s_t = torch.from_numpy(s).to(dev)
-    w, mode = build_denoiser(1, 35, 0.35) if combine == "sum" else (None, 0)
-    got = bin_signals(cell_t, s_t, n_cells=n_cells, combine=combine,
-                      weights=w, w_mode=mode)
-    want = _bin_plain(cell_t, s_t, n_cells=n_cells, combine=combine,
-                      weights=w, w_mode=mode)
+    if case == "clustered":
+        s[50:60] = 0.0                                      # all zero
+    if combine == "max":
+        s = s - np.float32(0.5)
+    w, mode = build_denoiser(1, 35, 0.35) if combine == "taps" else (None, 0)
+    kw = dict(n_cells=n_cells, combine="max" if combine == "max" else "sum",
+              weights=None if w is None else tuple(map(float, w)),
+              w_mode=mode)
+    return torch.from_numpy(cell).to(dev), torch.from_numpy(s).to(dev), kw
+
+
+@pytest.mark.parametrize("case", ["uniform", "long", "clustered"])
+@pytest.mark.parametrize("combine", ["taps", "sum", "max"])
+def test_bin_kernel_equals_plain(dev, combine, case):
+    cell, s, kw = _bin_case(combine, case, dev)
+    n0 = bin_signals.launches
+    got = bin_signals(cell, s, **kw)
+    want = _bin_plain(cell, s, **kw)
     torch.cuda.synchronize()
-    assert torch.equal(got, want)
+    assert bin_signals.launches == n0 + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert (got != 0).any()
+
+
+@pytest.mark.parametrize("case", ["uniform", "long", "clustered"])
+@pytest.mark.parametrize("combine", ["taps", "sum", "max"])
+def test_bin_bwd_kernel_equals_plain(dev, combine, case):
+    """K5's backward kernel bit for bit against the reference's _bin_bwd
+    and the per-signal plain version, on the forward's own output."""
+    cell, s, kw = _bin_case(combine, case, dev)
+    out = bin_signals(cell, s, **kw)
+    g = torch.from_numpy(np.random.default_rng(8).normal(
+        size=out.shape).astype(np.float32)).to(dev)
+    n0 = bin_bwd.launches
+    got = bin_bwd(cell, s, out, g, **kw)
+    torch.cuda.synchronize()
+    assert bin_bwd.launches == n0 + 1
+    for plain in (_bin_bwd, _bin_bwd_signals):
+        want = plain(cell, s, out, g, **kw)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert got.abs().max() > 0
+
+
+@pytest.mark.parametrize("n_super", [32, 128, 320, 3136])
+@pytest.mark.parametrize("rbt", [1024, 512, 256, 128])
+def test_coarse_words_kernel_equals_plain(scene, dev, rbt, n_super):
+    """K3 bit for bit on synthetic supergroup boxes for every tile width,
+    with dead lanes (budget 0) and whole dead tiles; 3,136 supergroups
+    (~25M triangles at chunk 256) take three of the kernel's shared-memory
+    slices, the last one partial."""
+    o, d, bud = _fan(8192 + 77, dev, seed=6)
+    bud[::5] = 0.0
+    bud[:rbt] = 0.0
+    o, _, inv_d, bud, _, _, _ = CT._prep_inputs(scene, o, d, bud,
+                                                ray_block=2048, group=1)
+    rng = np.random.default_rng(n_super)
+    c = rng.uniform([-60, -60, 0], [60, 60, 10], (n_super, 3))
+    h = rng.uniform(0.5, 8.0, (n_super, 3))
+    slo = torch.from_numpy((c - h).astype(np.float32)).to(dev)
+    shi = torch.from_numpy((c + h).astype(np.float32)).to(dev)
+    args = (slo, shi, o, inv_d, bud, 1000.0, rbt)
+    n0 = CT.coarse_words.launches
+    w_k = CT.coarse_words(*args)
+    w_p = CT._coarse_words_plain(*args)
+    torch.cuda.synchronize()
+    assert CT.coarse_words.launches == n0 + 1
+    assert torch.equal(w_k, w_p)
+    assert (w_k != 0).any() and (w_k[0] == 0).all()
 
 
 @pytest.fixture(scope="module")
@@ -216,10 +303,11 @@ def test_small_scene_kernel_path_runs_flat_prep(small_scene, dev):
 
 @pytest.mark.parametrize("combine", ["sum", "taps", "max"])
 def test_bin_function_backward_on_card(dev, combine):
-    """Gradients through the kernel's Function equal the plain version's
-    autograd gradients (exact for sum and max; within 1e-6 of the largest
-    on the tap path, whose adjoint autograd sums in another order) and the
-    CPU Function's."""
+    """Gradients through the kernels' Function equal the reference's
+    _bin_bwd bit for bit on the card and the CPU Function's; the plain
+    version's autograd gradient agrees exactly for sum and max and within
+    1e-6 of the largest on the tap path (autograd sums the tap adjoints in
+    another order)."""
     rng = np.random.default_rng(5)
     A, N, n_cells = 400, 200, 3424
     cell = rng.integers(-5, n_cells + 5, (A, N)).astype(np.int32)
@@ -231,19 +319,23 @@ def test_bin_function_backward_on_card(dev, combine):
 
     def grad(fn, device):
         st = torch.from_numpy(s).to(device).requires_grad_(True)
-        fn(torch.from_numpy(cell).to(device), st, **kw).backward(
-            torch.from_numpy(g).to(device))
-        return st.grad
+        out = fn(torch.from_numpy(cell).to(device), st, **kw)
+        out.backward(torch.from_numpy(g).to(device))
+        return st.grad, out.detach()
 
-    n0 = bin_signals.launches
-    got = grad(bin_signals, dev)
+    n0, b0 = bin_signals.launches, bin_bwd.launches
+    got, out = grad(bin_signals, dev)
     torch.cuda.synchronize()
-    assert bin_signals.launches == n0 + 1
-    plain = grad(_bin_plain, dev)
-    cpu = grad(bin_signals, "cpu")
+    assert bin_signals.launches == n0 + 1 and bin_bwd.launches == b0 + 1
+    wt = None if w is None else tuple(map(float, w))
+    want = _bin_bwd(torch.from_numpy(cell).to(dev), torch.from_numpy(s).to(
+        dev), out, torch.from_numpy(g).to(dev), **dict(kw, weights=wt))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    cpu, _ = grad(bin_signals, "cpu")
+    assert torch.equal(got.cpu().view(torch.int32), cpu.view(torch.int32))
+    plain, _ = grad(_bin_plain, dev)
     atol = 1e-6 * float(plain.abs().max()) if combine == "taps" else 0.0
     torch.testing.assert_close(got, plain, rtol=0, atol=atol)
-    torch.testing.assert_close(got.cpu(), cpu, rtol=0, atol=atol)
     assert got.abs().max() > 0
 
 

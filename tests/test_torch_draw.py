@@ -18,7 +18,9 @@ from radarays_ros_tpu.image.perlin import perlin_affine_rows as jx_perlin
 
 from radarays_ros_tpu_torch.image import denoise as D
 from radarays_ros_tpu_torch.image import draw as DR
-from radarays_ros_tpu_torch.image.cuda_draw import _bin_plain, bin_signals
+from radarays_ros_tpu_torch.image.cuda_draw import (_bin_bwd,
+                                                    _bin_bwd_signals,
+                                                    _bin_plain, bin_signals)
 from radarays_ros_tpu_torch.image.perlin import perlin_affine_rows
 
 torch.set_num_threads(2)
@@ -239,3 +241,92 @@ def test_bin_wrapper_gradient_equals_plain_version(case):
     assert torch.equal(out, out_p)
     atol = 1e-6 * np.abs(want).max() if case == "taps" else 0.0
     np.testing.assert_allclose(got, want, rtol=0, atol=atol)
+
+
+def _edge_case(case):
+    """(cell, s, out, bin kwargs) for the per-signal backward: duplicate
+    cells, out-of-range cells, and cells within a tap window of either
+    edge (c < W, c > n_cells - W)."""
+    n_cells, W = 300, 35
+    cell, s, kw = _grad_case(case)
+    rng = np.random.default_rng(6)
+    edge = np.concatenate([np.arange(0, W), np.arange(n_cells - W, n_cells),
+                           [-1, -7, n_cells, n_cells + 3]])
+    cell[:, -60:] = rng.choice(edge, (cell.shape[0], 60)).astype(np.int32)
+    cell[:, -70:-60] = cell[:, -60:-50]                       # duplicates
+    ok = (cell >= 0) & (cell < n_cells)
+    fill = -np.inf if case == "max" else 0.0
+    s = np.where(ok, np.abs(s) + 0.25, fill).astype(np.float32)
+    out = _bin_plain(torch.from_numpy(cell), torch.from_numpy(s), **kw)
+    return torch.from_numpy(cell), torch.from_numpy(s), out, _bwd_kw(kw)
+
+
+def _bwd_kw(kw):
+    """The backward's keyword arguments for _grad_case's bin kwargs (the
+    taps as the Function stores them: a tuple of floats)."""
+    w = kw.get("weights")
+    return dict(n_cells=kw["n_cells"], combine=kw["combine"],
+                weights=None if w is None else tuple(map(float, w)),
+                w_mode=kw.get("w_mode", 0))
+
+
+@pytest.mark.parametrize("case", ["taps", "sum", "max"])
+def test_bin_bwd_signals_bit_equal_to_bin_bwd(case):
+    """The per-signal backward (the kernel's order: each signal's own cell,
+    taps in k order) returns the bits of _bin_bwd's full correlation and
+    gather, at the edges and out of range too."""
+    cell, s, out, kw = _edge_case(case)
+    g = torch.from_numpy(np.random.default_rng(7).normal(
+        size=(cell.shape[0], 300)).astype(np.float32))
+    got = _bin_bwd_signals(cell, s, out, g, **kw)
+    want = _bin_bwd(cell, s, out, g, **kw)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    ok = (cell >= 0) & (cell < 300)
+    assert (got[~ok] == 0).all() and got[ok].abs().max() > 0
+    edge = ok & ((cell < 35) | (cell > 300 - 35))
+    assert edge.sum() > 100 and got[edge].abs().max() > 0
+
+
+@pytest.mark.parametrize("case", ["taps", "sum", "max"])
+def test_bin_bwd_signals_matches_reference_vjp(case):
+    """The per-signal backward against jax.vjp of the reference's
+    custom_vjp (interpret), within test_bin_gradient_matches_reference_vjp's
+    tolerance: 2 ulp on the tap path, exact otherwise."""
+    cell, s, kw = _grad_case(case)
+    g = np.random.default_rng(3).normal(size=(16, 300)).astype(np.float32)
+    out = _bin_plain(torch.from_numpy(cell), torch.from_numpy(s), **kw)
+    bkw = _bwd_kw(kw)
+    got = _bin_bwd_signals(torch.from_numpy(cell), torch.from_numpy(s), out,
+                           torch.from_numpy(g), **bkw)
+    jkw = dict(kw, interpret=True, weights=bkw["weights"])
+    _, vjp = jax.vjp(lambda x: bin_signals_pallas(jnp.asarray(cell), x, **jkw),
+                     jnp.asarray(s))
+    ref = np.asarray(vjp(jnp.asarray(g))[0])
+    assert np.abs(ref).max() > 0 and (ref == 0).any()
+    rtol = _TAP_RTOL if case == "taps" else 0.0
+    np.testing.assert_allclose(got.numpy(), ref, rtol=rtol, atol=0)
+
+
+def test_bin_plain_writes_positive_zero_in_empty_windows():
+    """Wherever an output's tap window [c - (W-1-mode), c + mode] holds
+    only +-0 point values, the plain tap sum is +0.0 exactly (the bits the
+    kernel writes there without running the taps) — with a negative tap
+    (w * +0 = -0) and -0 strengths among the signals."""
+    n_cells, W, mode = 200, 7, 2
+    w = np.array([0.5, -0.25, 1.0, 0.75, -1.5, 0.125, 2.0], np.float32)
+    cell = np.array([[50, 50, 90, 120, 160, 199, 0, n_cells],
+                     [n_cells] * 7 + [30]], np.int32)
+    s = np.array([[1.5, -0.5, -0.0, 2.0, -0.0, 0.75, 3.0, 9.0],
+                  [9.0] * 7 + [-0.0]], np.float32)
+    got = _bin_plain(torch.from_numpy(cell), torch.from_numpy(s),
+                     n_cells=n_cells, combine="sum", weights=tuple(
+                         map(float, w)), w_mode=mode).numpy()
+    point = _bin_plain(torch.from_numpy(cell), torch.from_numpy(s),
+                       n_cells=n_cells, combine="sum").numpy()
+    nz = np.pad(point != 0, ((0, 0), (W - 1 - mode, mode)))
+    has = np.stack([nz[:, c:c + W].any(axis=1) for c in range(n_cells)], 1)
+    assert has.any() and (~has).any()
+    assert (got[~has].view(np.int32) == 0).all()       # +0.0, not -0.0
+    assert (got[has] != 0).any()
+    # windows around the -0 strengths and the -0-only row are among them
+    assert not has[0, 90] and not has[0, 160] and not has[1].any()
