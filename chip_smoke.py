@@ -7,15 +7,16 @@ over the ~10k-triangle companion scene, and material fitting (Adam through
 the differentiable frame) at the KAIST image size.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --kernel-times [ROOT]
+    python3 chip_smoke.py --kernel-times [ROOT [PHASE ...]]
 
 Phases (one line of figures each; any failure raises and exits non-zero):
   1. environment: card name and power limit, torch/CUDA versions, TF32 off;
   2. build: nvcc of the kernel library (seconds);
   3. each kernel vs its plain version on the card at the trace gate's
-     shapes (200k-triangle scene, 131,072-ray fan, ray block 2048) and the
-     bin kernel and its backward on a synthetic (400, 200) signal set with
-     the KAIST taps;
+     shapes (200k-triangle scene, 131,072-ray fan, ray block 2048; K4 on
+     the same fan against the scene's supergroups of 8 chunks, under the
+     hierarchical threshold) and the bin kernel and its backward on a
+     synthetic (400, 200) signal set with the KAIST taps;
   4. trace gate: engine "kernel" vs engine "sweep" on the fan (0 hit and 0
      object mismatches), and a 4096-ray subset vs the brute oracle;
   5. frames: KAIST preset over make_urban_scene(83000, 300, seed=7) in
@@ -48,7 +49,8 @@ Phases (one line of figures each; any failure raises and exits non-zero):
      evaluations to 40 dB, launch counts (K4, K1, K5 and its backward
      > 0); one loss and gradient through the kernels and through the
      plain versions (loss bit-equal, gradient finite, nonzero and within
-     1e-5 x max|g|), and K5 and its backward at the fit's shapes;
+     1e-5 x max|g|), and K5 and its backward, and K4 on the first pass's
+     rays, at the fit's shapes;
   8. the command line (io.cli.main, in this process so that the launch
      counters see it) over files written to a temporary directory: phase
      5's scene as a binary PLY, a scene config, the KAIST preset (and its
@@ -72,12 +74,14 @@ Phases (one line of figures each; any failure raises and exits non-zero):
      phases 5 and 6 each under torch.profiler (its kernels, copies,
      synchronizing calls, the device's idle share, and no copy issued
      inside bin_signals, by a check that must count the copy of its
-     positive control, made inside a range of that name), and every
+     positive control, made inside a range of that name), every
      kernel's time at the shapes and on the inputs of phases 3, 5, 6
-     and 7.
+     and 7, and a check that each K4 call is its one kernel (no fill,
+     memset or copy in its profiled window).
 A kernel's time (ms) is its mean device time per launch from
-torch.profiler's CUDA activity over a loop of wrapper calls (K3's with the
-memset that zeroes its words); wrapper_ms is CUDA events around the same
+torch.profiler's CUDA activity over a loop of wrapper calls (K3's and K4's
+with the window's other device work: K3's memset that zeroes its words, an
+older K4 wrapper's entry fill); wrapper_ms is CUDA events around the same
 loop, so wrapper_ms - ms is the host's cost per call; ms_source says which
 (events where the profile held no device time). A kernel's bound is the
 larger of its operations over PEAK_OPS (the published f32 rate) and its
@@ -101,7 +105,8 @@ these functions) with a library_note saying why. Details also go to
 chiprun_out/chip_smoke.json.
 
 With --kernel-times the script runs, through the port found under ROOT
-(default: this checkout), one batch of each frame path (phases 5 and 6):
+(default: this checkout), one batch of each frame path (phases 5 and 6, or
+those named after ROOT):
 every trace kernel on each bounce and K5's forward, each checked against
 its plain version and timed by device time and wrapper events, and the
 batch's profile with the copies made inside bin_signals; it prints one
@@ -111,6 +116,7 @@ on one card.
 
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import subprocess
@@ -157,13 +163,15 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_ms(fn, reps: int, name: str, memset: bool = False) -> dict:
+def kernel_ms(fn, reps: int, name: str, whole: bool = False) -> dict:
     """A kernel's time per launch over `reps` calls of its wrapper fn, after
     one warm-up: `ms`, the mean device time of the CUDA kernel KERNEL[name]
-    (with memset, plus the memsets in the window: K3 zeroes its words) from
-    torch.profiler's CUDA activity; `wrapper_ms`, CUDA events around the
-    loop of wrapper calls (cuda_ms: the host's work per call included);
-    and the host-to-device copies in the profiled window. Should the
+    from torch.profiler's CUDA activity (with whole, plus the time of every
+    other device event in the window per launch: K3's memset that zeroes
+    its words, the entry fill an older K4 wrapper launched); `wrapper_ms`,
+    CUDA events around the loop of wrapper calls (cuda_ms: the host's work
+    per call included); the host-to-device copies and the other device
+    events (kernels, memsets, copies) in the profiled window. Should the
     profile hold no such kernel, ms is wrapper_ms and ms_source says so."""
     import torch
     from torch.autograd import DeviceType
@@ -180,7 +188,7 @@ def kernel_ms(fn, reps: int, name: str, memset: bool = False) -> dict:
         mine = [e for e in dev if KERNEL[name] in e.name]
         if 2 * len(mine) >= reps:
             break
-    sets = [e for e in dev if memset and e.name.startswith("Memset")]
+    others = [e for e in dev if KERNEL[name] not in e.name]
     htod = sum("HtoD" in e.name for e in dev)
     if not mine:
         return dict(ms=wrapper, wrapper_ms=wrapper, htod_copies=htod,
@@ -190,14 +198,15 @@ def kernel_ms(fn, reps: int, name: str, memset: bool = False) -> dict:
     # its start)
     ms = sum(e.time_range.elapsed_us() for e in mine) / len(mine) / 1e3
     extra = {}
-    if sets:
-        extra["memset_ms"] = sum(e.time_range.elapsed_us()
-                                 for e in sets) / len(sets) / 1e3
-        ms += extra["memset_ms"]
+    if whole and others:
+        extra["companion_ms"] = sum(e.time_range.elapsed_us()
+                                    for e in others) / len(mine) / 1e3
+        extra["companions"] = sorted({e.name[:80] for e in others})
+        ms += extra["companion_ms"]
     return dict(ms=ms, wrapper_ms=wrapper, htod_copies=htod,
-                profiled_launches=len(mine), **extra,
-                ms_source="torch.profiler CUDA kernel time"
-                          + (" incl. memsets" if memset else ""))
+                profiled_launches=len(mine), other_device_events=len(others),
+                **extra, ms_source="torch.profiler CUDA kernel time"
+                + (" incl. the window's other device work" if whole else ""))
 
 
 # Profiler work waits until every end-to-end figure is taken: after a
@@ -208,10 +217,10 @@ def kernel_ms(fn, reps: int, name: str, memset: bool = False) -> dict:
 DEFERRED = []
 
 
-def timed(row: dict, fn, reps: int, name: str, memset: bool = False) -> dict:
-    """Queue kernel_ms(fn, reps, name, memset) for phase 9, which adds its
+def timed(row: dict, fn, reps: int, name: str, whole: bool = False) -> dict:
+    """Queue kernel_ms(fn, reps, name, whole) for phase 9, which adds its
     figures to row; returns row."""
-    DEFERRED.append(lambda: row.update(kernel_ms(fn, reps, name, memset)))
+    DEFERRED.append(lambda: row.update(kernel_ms(fn, reps, name, whole)))
     return row
 
 
@@ -317,8 +326,6 @@ def kernels_vs_plain(st, o, d, bud, rb: int, reps: int) -> dict:
     """The culling prep (K3 and K2, or K4 below the hierarchical threshold)
     and K1 against their plain versions on one ray set; returns per-kernel
     {max_abs_err, bitwise, ms, plain_ms, bound_ms, bound_by, ...}."""
-    import torch
-
     from radarays_ros_tpu_torch.trace import cuda_trace as CT
 
     o, d, inv_d, bud, lo, hi, C2 = CT._prep_inputs(st, o, d, bud,
@@ -340,39 +347,62 @@ def kernels_vs_plain(st, o, d, bud, rb: int, reps: int) -> dict:
             **bound(Rp * slo.shape[0] * OPS_SLAB,
                     ray_bytes + slo.shape[0] * 24 + w_k.numel() * 4)),
             lambda: CT.coarse_words(slo, shi, o, inv_d, bud, 1000.0, rbt),
-            reps, "coarse_words", memset=True)
-        name, args = "prep_hier", (w_k, lo, hi, o, inv_d, bud, 1000.0, rb,
-                                   rbt)
-        e_k, t_k = CT.prep_hier(*args)
-        e_p, t_p = CT._prep_plain(*args[1:], words=w_k)
-        kernel, plain = CT.prep_hier, lambda: CT._prep_plain(*args[1:],
-                                                             words=w_k)
+            reps, "coarse_words", whole=True)
+        args = (w_k, lo, hi, o, inv_d, bud, 1000.0, rb, rbt)
         set_bits = popcount(w_k)                                 # (G,)
-        tests = int(set_bits.sum()) * CT._SG * rbt
-        extra = dict(set_bits_per_tile_mean=float(set_bits.float().mean()),
-                     set_bits_per_tile_max=int(set_bits.max()),
-                     supergroups=int(slo.shape[0]))
-        in_bytes = ray_bytes + Cp * 24 + w_k.numel() * 4
+        out["prep_hier"], e_k, t_k = prep_row(
+            "prep_hier", lambda: CT.prep_hier(*args),
+            lambda: CT._prep_plain(*args[1:], words=w_k),
+            int(set_bits.sum()) * CT._SG * rbt,
+            ray_bytes + Cp * 24 + w_k.numel() * 4, reps, boxes=Cp,
+            set_bits_per_tile_mean=float(set_bits.float().mean()),
+            set_bits_per_tile_max=int(set_bits.max()),
+            supergroups=int(slo.shape[0]))
     else:
-        rbt = next(r for r in (256, 512, 128) if rb % r == 0)
-        name, args = "prep_flat", (lo, hi, o, inv_d, bud, 1000.0, rb, rbt)
-        e_k, t_k = CT.prep_flat(*args)
-        e_p, t_p = CT._prep_plain(*args)
-        kernel, plain = CT.prep_flat, lambda: CT._prep_plain(*args)
-        tests, extra = Rp * Cp, {}
-        in_bytes = ray_bytes + Cp * 24
-    err = max(max_abs(e_k, e_p), max_abs(t_k, t_p))
-    bitwise = bool(torch.equal(e_k, e_p) and torch.equal(t_k, t_p))
-    check(bitwise, f"{name}: not bitwise (max abs error {err})")
-    out[name] = timed(dict(max_abs_err=err, bitwise=bitwise, boxes=Cp,
-                           slab_tests=tests, **extra,
-                           plain_ms=cuda_ms(plain, max(1, reps // 5)),
-                           **bound(tests * OPS_SLAB,
-                                   in_bytes + e_k.numel() * 4 + Rp * 4)),
-                      lambda: kernel(*args), reps, name)
+        out["prep_flat"], e_k, t_k = flat_vs_plain(lo, hi, o, inv_d, bud,
+                                                   rb, reps)
     out["sweep"] = sweep_vs_plain(st, e_k, C2, o, d, t_k, bud, reps,
                                   boxes=(lo[:C2], hi[:C2], inv_d))
     return out
+
+
+def flat_vs_plain(lo, hi, o, inv_d, bud, rb: int, reps: int) -> tuple:
+    """K4 against its plain version (the flat branch of _run_prep) on one
+    ray set and box table: prep_row's (row, entry, t_last)."""
+    from radarays_ros_tpu_torch.trace import cuda_trace as CT
+
+    Rp, Cp = o.shape[0], lo.shape[0]
+    check(not (Cp % CT._SG == 0 and Cp // CT._SG >= 8),
+          f"{Cp} boxes take the hierarchical prep, not K4")
+    args = (lo, hi, o, inv_d, bud, 1000.0, rb)
+    if "rbt" in inspect.signature(CT.prep_flat).parameters:
+        # an older checkout's wrapper (--kernel-times) took the tile
+        args += (next(r for r in (256, 512, 128) if rb % r == 0),)
+    return prep_row("prep_flat", lambda: CT.prep_flat(*args),
+                    lambda: CT._run_prep(*args[:5], t_max=1000.0, RB=rb,
+                                         kernels=False),
+                    Rp * Cp, Rp * (12 + 12 + 4) + Cp * 24, reps, boxes=Cp)
+
+
+def prep_row(name: str, kernel, plain, tests: int, in_bytes: int,
+             reps: int, **extra) -> tuple:
+    """A prep kernel's (entry, t_last) from kernel() bit for bit against
+    plain()'s; returns (its row: the plain version's time, the bound of
+    `tests` slab tests over in_bytes of inputs and the outputs, and its
+    time by kernel_ms on kernel(), queued, K4's with the window's other
+    device work; entry; t_last)."""
+    import torch
+
+    e_k, t_k = kernel()
+    e_p, t_p = plain()
+    err = max(max_abs(e_k, e_p), max_abs(t_k, t_p))
+    bitwise = bool(torch.equal(e_k, e_p) and torch.equal(t_k, t_p))
+    check(bitwise, f"{name}: not bitwise (max abs error {err})")
+    return timed(dict(max_abs_err=err, bitwise=bitwise, slab_tests=tests,
+                      **extra, plain_ms=cuda_ms(plain, max(1, reps // 5)),
+                      **bound(tests * OPS_SLAB, in_bytes + e_k.numel() * 4
+                              + t_k.numel() * 4)),
+                 kernel, reps, name, whole=name == "prep_flat"), e_k, t_k
 
 
 def lane_kept(lo, hi, o, inv_d, cap, lim):
@@ -1076,8 +1106,18 @@ def fit_phase(dev) -> dict:
     cell, s = bin_inputs(st, start, cfg, waves, sensor_pos)
     w, mode = cfg.denoiser()
     k5 = bin_vs_plain(cell, s, w, mode, cfg.n_cells, reps=20)
-    info["bin_fit_shapes"] = dict(k5, rows=cell.shape[0],
-                                  signals_per_row=cell.shape[1])
+    # and K4 on the first pass's rays and budgets, in ray-major order
+    from radarays_ros_tpu_torch.trace import cuda_trace as CT
+
+    def rm(x):
+        return x.movedim(0, 2).reshape(-1, *x.shape[3:]).contiguous()
+
+    o, _, inv_d, bud, lo, hi, _ = CT._prep_inputs(
+        st, rm(waves.orig), rm(waves.dir), rm(P.trace_budget(cfg, waves)),
+        ray_block=cfg.trace_ray_block, group=1)
+    k4 = flat_vs_plain(lo, hi, o, inv_d, bud, cfg.trace_ray_block, 20)[0]
+    info["kernels_fit_shapes"] = dict(k5, prep_flat=k4, rows=cell.shape[0],
+                                      signals_per_row=cell.shape[1])
     long = ("grad_kernel", "grad_plain", "history_psnr_db")
     log(f"[7 fit] {json.dumps({k: v for k, v in info.items() if k not in long})}")
     return info
@@ -1379,10 +1419,11 @@ def cli_phase(dev, scene5, host5, cfg, info5, scene10) -> dict:
     return info
 
 
-def kernel_times(dev, smi: str) -> dict:
+def kernel_times(dev, smi: str, phases=("5", "6")) -> dict:
     """The --kernel-times run, through the port that sys.path finds first
-    (main puts ROOT there): for each frame path (phase 5's ~1M-triangle
-    scene, phase 6's 10k companion) one KAIST batch, every trace kernel of
+    (main puts ROOT there): for each frame path in phases (phase 5's
+    ~1M-triangle scene, phase 6's 10k companion) one KAIST batch, every
+    trace kernel of
     the path on each bounce and K5's forward (kernels_vs_plain,
     bin_fwd_vs_plain: checked bit for bit, timed by kernel_ms), and one
     batch under the profiler (batch_profile: copies inside bin_signals).
@@ -1397,8 +1438,9 @@ def kernel_times(dev, smi: str) -> dict:
     b = cuda_build.build()
     out = dict(package=os.path.dirname(os.path.dirname(cuda_draw.__file__)),
                gpu=smi, build_s=b.seconds)
-    for tag, n_buildings in (("5", 83000), ("6", 800)):
-        _, st, params, cfg, _, _ = kaist_setup(dev, n_buildings=n_buildings)
+    for tag in phases:
+        _, st, params, cfg, _, _ = kaist_setup(
+            dev, n_buildings={"5": 83000, "6": 800}[tag])
         poses = batch_poses()
         gen = torch.Generator(dev).manual_seed(0)
         waves0, sensor_pos, _ = batch_waves(params, cfg, poses, gen, dev)
@@ -1438,8 +1480,9 @@ def main() -> int:
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=60, check=True).stdout.strip().splitlines()[0]
-        print(json.dumps({"kernel_times": kernel_times(torch.device("cuda"),
-                                                       smi)}), flush=True)
+        print(json.dumps({"kernel_times": kernel_times(
+            torch.device("cuda"), smi, sys.argv[3:] or ("5", "6"))}),
+            flush=True)
         return 0
     import numpy as np
 
@@ -1488,6 +1531,12 @@ def main() -> int:
     n_rays = o.shape[0]
     bud = torch.full((n_rays,), 1000.0, device=dev)
     gk = kernels_vs_plain(gate, o, d, bud, rb=2048, reps=5)
+    # K4 on the same fan against the scene's supergroups of 8 chunks, fewer
+    # than 256 boxes (the flat prep's side of the threshold)
+    from radarays_ros_tpu_torch.trace import cuda_trace as CT
+    o8, _, inv8, bud8, lo8, hi8, _ = CT._prep_inputs(gate, o, d, bud,
+                                                     ray_block=2048, group=8)
+    gk["prep_flat"] = flat_vs_plain(lo8, hi8, o8, inv8, bud8, 2048, 5)[0]
     w, mode = RadarModelConfig(signal_denoising_triangular_width=35,
                                signal_denoising_triangular_mode=0.35
                                ).denoiser()
@@ -1575,6 +1624,18 @@ def main() -> int:
         check(fr["profile"]["bin_calls"] > 0
               and fr["profile"]["memcpy_calls_in_bin"] == 0,
               "bin_signals issued a copy")
+    # each K4 call is its one kernel: no fill, memset or copy in its window
+    flat = [("gate", gk["prep_flat"]),
+            ("fit", details["fit"]["kernels_fit_shapes"]["prep_flat"])] + [
+        (f"6 bounce {i + 1}", mb["prep_flat"]) for i, mb in enumerate(bb6)]
+    alone = {k: dict(profiled_launches=r.get("profiled_launches", 0),
+                     other_device_events=r.get("other_device_events"))
+             for k, r in flat}
+    details["prep_flat_alone"] = alone
+    log(f"[9 K4 launches alone] {json.dumps(alone)}")
+    check(all(v["profiled_launches"] > 0 and v["other_device_events"] == 0
+              for v in alone.values()),
+          "a K4 wrapper call ran device work besides its kernel")
     times = ("ms", "wrapper_ms", "ms_source")
     log("[9 kernel times, gate shapes] " + json.dumps(
         {k: {kk: v[kk] for kk in times} for k, v in gk.items()}))
@@ -1585,7 +1646,7 @@ def main() -> int:
     mk, mk10 = kernel_rows(bb5, k5_5), kernel_rows(bb6, k5_6)
     details.update(kernels_main_path=mk, kernels_10k=mk10)
     for tag, rows in (("5", mk), ("6", mk10),
-                      ("7", details["fit"]["bin_fit_shapes"])):
+                      ("7", details["fit"]["kernels_fit_shapes"])):
         log(f"[9 kernel times, phase {tag}, per launch] " + json.dumps(
             {k: {kk: v[kk] for kk in (*times, "plain_ms", "bound_ms",
                                       "bound_by") if kk in v}
@@ -1613,8 +1674,8 @@ def main() -> int:
     rows = {k: (launches10, mk10, TIMED_BATCHES, "6 frames at 10k")
             if k == "prep_flat" else (launches, mk, TIMED_BATCHES,
                                       "5 frames at 1M") for k in source}
-    rows["bin_bwd"] = (fit["launches"], fit["bin_fit_shapes"], FIT_STEPS,
-                       "7 fit, per Adam step")
+    rows["bin_bwd"] = (fit["launches"], fit["kernels_fit_shapes"],
+                       FIT_STEPS, "7 fit, per Adam step")
     # ms (device time), wrapper_ms, plain_ms and bound_ms are per launch,
     # averaged over the launches of one batch (K1-K4: one a bounce; K5:
     # one a batch)

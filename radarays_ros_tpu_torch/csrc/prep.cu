@@ -39,14 +39,29 @@
 //    the caller pre-fills with -inf: its bits are negative and every tn0's
 //    are >= 0, so that max too is exact in any order. Results do not depend
 //    on the tile width or on the order the CTAs run in.
-//  * K4 rr_prep_flat: every lane of a tile against every box, with no
-//    coarse gate. The box table (at most a few hundred boxes below the
-//    hierarchical threshold) is staged in shared memory once per block;
-//    per box a warp min and a shared atomicMin give the tile's entry, and
-//    after the loop one global atomicMin per box folds it into the block's
-//    entry row (pre-filled with +inf), exact for the same reason as K2's.
-//    The reference writes per-tile partials and takes their min in XLA
-//    (:741); the atomic min gives the same values.
+//  * K4 rr_prep_flat: every lane of a ray block against every box, with no
+//    coarse gate, one thread-block cluster per ray block. The block's
+//    tiles (at most 8, the portable cluster size) are the cluster's CTAs
+//    of 128 threads, 2 lanes a thread (a 256-lane tile). Each CTA stages
+//    the box table (at most 1,024 boxes, float4 in shared memory) and walks
+//    it 8 boxes at a time: 16 independent slab tests a thread, then one
+//    __reduce_min_sync (redux.sync) a box on the int bits of tn0 (entries
+//    are >= +0 or +inf, so int order is float order), the 8 warp minima
+//    gathered into lanes 0-7 and folded into the CTA's row by one shared
+//    atomicMin instruction. A CTA whose tile has more lanes takes it in
+//    passes (blocks of more than 8 tiles: the tile grows and each thread
+//    takes more lanes, so the cluster stays portable). Trials on the card
+//    (PERF.md) put this shape ahead of 256 threads of one lane, of 64
+//    threads of 4, of one 1,024-thread CTA a block, of groups of 16 boxes
+//    and of per-warp rows in plain stores. After cluster.sync() the CTAs
+//    split the boxes, and each folds its share over the cluster's rows
+//    through distributed shared memory (map_shared_rank) and writes the
+//    block's entries with plain stores: every element once, no pre-fill,
+//    no global atomics. A second
+//    cluster.sync() keeps each CTA's row alive until its peers have read
+//    it. t_last is one plain store a lane. The reference writes per-tile
+//    partials and takes their min in XLA (:741); the min is exact in any
+//    order, so the values are the same.
 //
 // What bounds it on the card: f32 operations, ~20 per tested (lane, box)
 // pair (6 sub+mul, the min/max chain, the keep test); rays, boxes and the
@@ -55,14 +70,22 @@
 // The earlier K2 ran one CTA of 1024 lanes per tile (80 CTAs on the main
 // path, on 80 of 132 SMs) looping serially over the set bits with two
 // block barriers each; the pairs now fill the card. The flat prep K4 runs
-// only where the whole table is small.
+// only where the whole table is small (40 boxes on the 10k frames: 3.3 M
+// slab tests, ~1 us of f32 work at the published rate), so its launch,
+// staging and cluster barriers weigh as much as its tests; it keeps them
+// to one launch, one staged table and two cluster barriers a block.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 // K3's supergroups staged in shared memory at a time (48 KB of float4 lo
 // and hi: no opt-in to a larger block)
 #define RR_COARSE_SLICE 1536
+// K4: threads a CTA at most, lanes a thread per pass, boxes a group
+#define RR_FLAT_THREADS 128
+#define RR_FLAT_LANES 2
+#define RR_FLAT_GROUP 8
 
 namespace {
 
@@ -208,49 +231,84 @@ prep_hier_kernel(const int* __restrict__ words, int n_words,
                 __float_as_int(tl[j]));
 }
 
-// K4: grid (n_tiles), block = rbt threads (one lane each); dynamic shared
-// memory: the (cp, 3) lo and hi tables, then cp int entries
-__global__ void prep_flat_kernel(const float* __restrict__ lo,
-                                 const float* __restrict__ hi, int cp,
-                                 const float* __restrict__ o,
-                                 const float* __restrict__ idv,
-                                 const float* __restrict__ bud, int rbt,
-                                 int tiles_per_block, float t_max,
-                                 float* __restrict__ entry,
-                                 float* __restrict__ t_last) {
-  extern __shared__ float sm[];
-  float* s_lo = sm;
-  float* s_hi = sm + 3 * cp;
-  int* s_entry = reinterpret_cast<int*>(sm + 6 * cp);
-  const int g = blockIdx.x, tid = threadIdx.x;
+// K4: grid (n_tiles) in clusters of tiles_per_block CTAs, one cluster per
+// ray block; a CTA's rbt lanes in passes of blockDim.x * RR_FLAT_LANES;
+// dynamic shared memory: the cp boxes as float4 lo, then hi, then the
+// CTA's cp int entries
+__global__ void __launch_bounds__(RR_FLAT_THREADS)
+prep_flat_kernel(const float* __restrict__ lo, const float* __restrict__ hi,
+                 int cp, const float* __restrict__ o,
+                 const float* __restrict__ idv, const float* __restrict__ bud,
+                 int rbt, int tiles_per_block, float t_max,
+                 float* __restrict__ entry, float* __restrict__ t_last) {
+  namespace cg = cooperative_groups;
+  extern __shared__ float4 sm_flat[];
+  float4* s_lo = sm_flat;
+  float4* s_hi = sm_flat + cp;
+  int* s_entry = reinterpret_cast<int*>(sm_flat + 2 * cp);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31;
   const int inf_bits = __float_as_int(CUDART_INF_F);
-  for (int i = tid; i < 3 * cp; i += blockDim.x) {
-    s_lo[i] = lo[i];
-    s_hi[i] = hi[i];
-  }
-  for (int c = tid; c < cp; c += blockDim.x) s_entry[c] = inf_bits;
-  __syncthreads();
-  const long long r = (long long)g * rbt + tid;
-  const Ray ray = load_ray(o, idv, bud, r, t_max);
-  float tl = -CUDART_INF_F;
-  for (int c = 0; c < cp; ++c) {
-    float tn0;
-    const bool keep = slab_keep(s_lo + 3 * c, s_hi + 3 * c, ray, &tn0);
-    if (keep) tl = fmaxf(tl, tn0);
-    float m = keep ? tn0 : CUDART_INF_F;
-    for (int off = 16; off > 0; off >>= 1)
-      m = fminf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    if ((tid & 31) == 0 && m < CUDART_INF_F)
-      atomicMin(&s_entry[c], __float_as_int(m));
+  for (int i = tid; i < cp; i += nt) {
+    s_lo[i] = make_float4(lo[3 * i], lo[3 * i + 1], lo[3 * i + 2], 0.f);
+    s_hi[i] = make_float4(hi[3 * i], hi[3 * i + 1], hi[3 * i + 2], 0.f);
+    s_entry[i] = inf_bits;
   }
   __syncthreads();
-  int* entry_row = reinterpret_cast<int*>(entry) +
-                   (long long)(g / tiles_per_block) * cp;
-  for (int c = tid; c < cp; c += blockDim.x) {
-    const int v = s_entry[c];
-    if (v != inf_bits) atomicMin(&entry_row[c], v);
+  const long long first = (long long)blockIdx.x * rbt;
+  for (int p0 = 0; p0 < rbt; p0 += nt * RR_FLAT_LANES) {
+    Ray ray[RR_FLAT_LANES];
+    float tl[RR_FLAT_LANES];
+#pragma unroll
+    for (int j = 0; j < RR_FLAT_LANES; ++j) {
+      // a thread past the tile's last lane keeps no box (cap 0) and
+      // stores nothing, but takes part in its warp's reductions
+      const int i = p0 + j * nt + tid;
+      ray[j] = load_ray(o, idv, bud, first + (i < rbt ? i : 0), t_max);
+      if (i >= rbt) ray[j].cap = 0.f;
+      tl[j] = -CUDART_INF_F;
+    }
+    for (int c0 = 0; c0 < cp; c0 += RR_FLAT_GROUP) {
+      int mine = inf_bits;          // lane u: the warp's min for box c0 + u
+#pragma unroll
+      for (int u = 0; u < RR_FLAT_GROUP; ++u) {
+        // past the last box the group repeats it: the same keep and tn0,
+        // so t_last is unchanged, and its min is never folded in
+        const float4 l4 = s_lo[min(c0 + u, cp - 1)];
+        const float4 h4 = s_hi[min(c0 + u, cp - 1)];
+        const float bl[3] = {l4.x, l4.y, l4.z}, bh[3] = {h4.x, h4.y, h4.z};
+        int m = inf_bits;
+#pragma unroll
+        for (int j = 0; j < RR_FLAT_LANES; ++j) {
+          float tn0;
+          if (slab_keep(bl, bh, ray[j], &tn0)) {
+            tl[j] = fmaxf(tl[j], tn0);
+            m = min(m, __float_as_int(tn0));
+          }
+        }
+        m = __reduce_min_sync(0xffffffffu, m);
+        if (lane == u) mine = m;
+      }
+      if (lane < RR_FLAT_GROUP && c0 + lane < cp && mine != inf_bits)
+        atomicMin(&s_entry[c0 + lane], mine);
+    }
+#pragma unroll
+    for (int j = 0; j < RR_FLAT_LANES; ++j) {
+      const int i = p0 + j * nt + tid;
+      if (i < rbt) t_last[first + i] = tl[j];
+    }
   }
-  t_last[r] = tl;
+  cluster.sync();             // every CTA's row is complete and visible
+  const int q = (int)cluster.block_rank();
+  float* entry_row = entry + (long long)(blockIdx.x / tiles_per_block) * cp;
+  for (int c = q + tid * tiles_per_block; c < cp;
+       c += nt * tiles_per_block) {
+    int v = inf_bits;
+    for (int r = 0; r < tiles_per_block; ++r)
+      v = min(v, cluster.map_shared_rank(s_entry, r)[c]);
+    entry_row[c] = __int_as_float(v);
+  }
+  cluster.sync();             // no CTA's row goes while a peer reads it
 }
 
 }  // namespace
@@ -311,20 +369,41 @@ extern "C" int rr_prep_hier(const int* words, int n_words, const float* lo,
 }
 
 // lo/hi (cp, 3) boxes, cp <= 1024 (the table lives in shared memory);
-// o/idv/bud per lane; G = B * I tiles, I = tiles_per_block. entry (B, cp)
-// must be pre-filled with +inf. Outputs entry (min-accumulated) and t_last
-// (G * rbt,).
+// o/idv/bud per lane; G = B * I tiles of rbt lanes (a multiple of 32), I =
+// tiles_per_block <= 8 CTAs a cluster, one cluster per ray block. Writes
+// every element of entry (B, cp) and t_last (G * rbt,): neither needs a
+// fill. A refused launch (cluster, grid or shared memory) comes back as
+// the error.
 extern "C" int rr_prep_flat(const float* lo, const float* hi, int cp,
                             const float* o, const float* idv,
                             const float* bud, int n_tiles, int rbt,
                             int tiles_per_block, float t_max, float* entry,
                             float* t_last, cudaStream_t stream) {
-  if (rbt % 32 != 0 || rbt > 1024 || tiles_per_block < 1 || cp < 1 ||
+  if (rbt % 32 != 0 || rbt < 32 || tiles_per_block < 1 ||
+      tiles_per_block > 8 || n_tiles % tiles_per_block != 0 || cp < 1 ||
       cp > 1024)
     return (int)cudaErrorInvalidValue;
   if (n_tiles == 0) return cudaSuccess;
-  const size_t smem = (size_t)7 * cp * sizeof(float);
-  prep_flat_kernel<<<n_tiles, rbt, smem, stream>>>(
-      lo, hi, cp, o, idv, bud, rbt, tiles_per_block, t_max, entry, t_last);
-  return (int)cudaGetLastError();
+  // threads: the tile's lanes over RR_FLAT_LANES, in whole warps, at most
+  // RR_FLAT_THREADS (a wider tile takes several passes)
+  const int per = (rbt + RR_FLAT_LANES - 1) / RR_FLAT_LANES;
+  const int nt = per < RR_FLAT_THREADS ? (per + 31) / 32 * 32
+                                       : RR_FLAT_THREADS;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)n_tiles);
+  cfg.blockDim = dim3((unsigned)nt);
+  cfg.dynamicSmemBytes = (size_t)cp * (2 * sizeof(float4) + sizeof(int));
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)tiles_per_block;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, prep_flat_kernel, lo, hi, cp, o, idv, bud,
+                         rbt, tiles_per_block, t_max, entry, t_last);
+  const cudaError_t last = cudaGetLastError();   // and clear it
+  return (int)(e != cudaSuccess ? e : last);
 }

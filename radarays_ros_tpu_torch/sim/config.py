@@ -99,9 +99,11 @@ class RadarModelConfig:
     The port reads the model/simulation/denoise/noise fields, n_angles,
     material_id_air, wave_energy_threshold, skip_dist, reflection_model,
     opaque_materials, trace_engine ("auto" | "brute" | "sweep" |
-    "kernel"), draw_method ("auto" | "plain"), trace_ray_block,
-    trace_prep_group and trace_aux_baked. The other engine knobs
-    (trace_tri_chunk, trace_k_chunks, trace_scene_axis,
+    "kernel"; from_dict maps the reference's names, `port_engine`),
+    draw_method ("auto" | "plain"; from_dict maps the reference's
+    "scatter", "sort" and "pallas" to "auto", `port_draw_method`),
+    trace_ray_block, trace_prep_group and trace_aux_baked. The other
+    engine knobs (trace_tri_chunk, trace_k_chunks, trace_scene_axis,
     trace_two_phase_cap, trace_argmin_mode, trace_term_stride) belong to
     reference engines the port does not have and are ignored.
     """
@@ -185,12 +187,16 @@ class RadarModelConfig:
     @staticmethod
     def from_dict(d: dict) -> "RadarModelConfig":
         """Build from a flat dict of cfg names (preset YAML loader); unknown
-        keys are ignored and a reference engine name is mapped to the
-        port's (`port_engine`)."""
+        keys are ignored, and the reference's engine and draw method names
+        are mapped to the port's (`port_engine`, `port_draw_method`), so a
+        value the port cannot run raises here and not at the first
+        frame."""
         fields = {f.name for f in dataclasses.fields(RadarModelConfig)}
         known = {k: v for k, v in d.items() if k in fields}
         if "trace_engine" in known:
             known["trace_engine"] = port_engine(known["trace_engine"])
+        if "draw_method" in known:
+            known["draw_method"] = port_draw_method(known["draw_method"])
         return RadarModelConfig(**known)
 
 
@@ -209,6 +215,25 @@ def port_engine(name: str) -> str:
             "belongs to ROADMAP M8 and is not ported yet; use 'kernel', "
             "'sweep' or 'brute'")
     return _ENGINE_ALIASES.get(name, name)
+
+
+# the port's draw methods, and the reference's three binning methods, which
+# its tests hold equal (tests/test_image.py:265), as the port's "auto" (the
+# K5 wrapper)
+_DRAW_METHODS = {"auto": "auto", "plain": "plain", "scatter": "auto",
+                 "sort": "auto", "pallas": "auto"}
+
+
+def port_draw_method(name: str) -> str:
+    """A draw_method of either package -> the port's: "auto" and "plain"
+    as they are, the reference's "scatter", "sort" and "pallas" as "auto";
+    any other value raises."""
+    if name not in _DRAW_METHODS:
+        raise ValueError(
+            f"unknown draw_method {name!r}: the port takes 'auto' or "
+            "'plain', and the reference's 'scatter', 'sort' and 'pallas' "
+            "(as 'auto')")
+    return _DRAW_METHODS[name]
 
 
 def default_params(scene_n_objects: int = 1, device="cpu"

@@ -198,9 +198,26 @@ def prep_hier(words, lo, hi, o, idv, bud, t_max: float, RB: int, rbt: int):
 prep_hier.launches = 0
 
 
-def prep_flat(lo, hi, o, idv, bud, t_max: float, RB: int, rbt: int):
+_FLAT_TILE = 256   # lanes a K4 CTA takes in one pass: 128 threads x 2
+                   # lanes (prep.cu RR_FLAT_THREADS, RR_FLAT_LANES)
+_FLAT_CLUSTER = 8  # CTAs of a ray block's cluster at most (portable size)
+
+
+def _flat_tile(RB: int) -> int:
+    """K4's tile: RB / I lanes for the fewest CTAs I (at most 8, each a
+    whole number of warps) whose tiles take one pass; a block of more than
+    8 such tiles gets 8 wider tiles, each taken in several passes."""
+    fits = [i for i in range(1, _FLAT_CLUSTER + 1) if RB % (32 * i) == 0]
+    if not fits:
+        raise ValueError(f"prep_flat: ray block {RB} is not a multiple of 32")
+    return RB // next((i for i in fits if RB // i <= _FLAT_TILE), fits[-1])
+
+
+def prep_flat(lo, hi, o, idv, bud, t_max: float, RB: int):
     """K4 wrapper: the plain flat prep on CPU tensors, the CUDA kernel
-    rr_prep_flat on CUDA tensors."""
+    rr_prep_flat on CUDA tensors: one cluster of RB / _flat_tile(RB) CTAs
+    per ray block, writing every entry itself (no fill)."""
+    rbt = _flat_tile(RB)
     if o.device.type == "cpu":
         return _prep_plain(lo, hi, o, idv, bud, t_max, RB, rbt)
     from radarays_ros_tpu_torch import cuda_build
@@ -209,12 +226,11 @@ def prep_flat(lo, hi, o, idv, bud, t_max: float, RB: int, rbt: int):
                              dtypes=(torch.float32,) * 5)
     Rp = o.shape[0]
     Cp = lo.shape[0]
-    if Rp % RB or RB % rbt or not 1 <= Cp <= 1024 \
-            or hi.shape != lo.shape or bud.shape != (Rp,):
+    if Rp % RB or not 1 <= Cp <= 1024 or hi.shape != lo.shape \
+            or bud.shape != (Rp,):
         raise ValueError(f"prep_flat: inconsistent shapes (rays {Rp}, block "
-                         f"{RB}, tile {rbt}, boxes {Cp}, at most 1024)")
-    entry = torch.full((Rp // RB, Cp), torch.inf, dtype=torch.float32,
-                       device=o.device)
+                         f"{RB}, boxes {Cp}, at most 1024)")
+    entry = torch.empty((Rp // RB, Cp), dtype=torch.float32, device=o.device)
     t_last = torch.empty(Rp, dtype=torch.float32, device=o.device)
     lib = cuda_build.build().lib
     cuda_build.check(lib.rr_prep_flat(
@@ -245,12 +261,11 @@ def _run_prep(lo, hi, o, idv, bud, *, t_max: float, RB: int, kernels: bool):
     """entry (B, Cp) + t_last (B*RB,) for padded supergroup boxes lo/hi
     (Cp, 3) — the reference's _run_prep_kernel (pallas_trace.py:641)."""
     Cp = lo.shape[0]
-    hier = Cp % _SG == 0 and Cp // _SG >= 8
-    want = 1024 if hier else 256
-    rbt = next(r for r in (want, 512, 256, 128) if RB % r == 0)
-    if not hier:
-        run = prep_flat if kernels else _prep_plain
-        return run(lo, hi, o, idv, bud, t_max, RB, rbt)
+    if not (Cp % _SG == 0 and Cp // _SG >= 8):
+        if kernels:
+            return prep_flat(lo, hi, o, idv, bud, t_max, RB)
+        return _prep_plain(lo, hi, o, idv, bud, t_max, RB, _flat_tile(RB))
+    rbt = next(r for r in (1024, 512, 256, 128) if RB % r == 0)
     slo, shi = _coarse_boxes(lo, hi)
     if kernels:
         words = coarse_words(slo, shi, o, idv, bud, t_max, rbt)

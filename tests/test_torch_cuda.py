@@ -265,25 +265,78 @@ def small_scene(dev):
     return st
 
 
-@pytest.mark.parametrize("chunk_size,rb", [(64, 2048), (16, 768),
-                                           (256, 128)])
-def test_flat_prep_kernel_equals_plain(dev, chunk_size, rb):
-    """K4 against its plain version bit for bit, for box counts that are
-    not a multiple of 32 and for the 8 padded boxes of a tiny scene."""
-    parts, names = make_urban_scene(n_buildings=20, extent=40.0, seed=1)
-    st = Scene.compose(parts, names, chunk_size=chunk_size).to_device(dev)
-    o, d, bud = _fan(4096 + 77, dev, seed=3)
-    o, d, inv_d, bud, lo, hi, C2 = CT._prep_inputs(st, o, d, bud,
-                                                    ray_block=rb, group=1)
-    assert lo.shape[0] < 8 * CT._SG
-    rbt = next(r for r in (256, 512, 128) if rb % r == 0)
+def _flat_case(scene, dev, rb, n_boxes, seed=3):
+    """K4's inputs: a fan of 2 * rb + 64 rays (three blocks, the last mostly
+    padding) with budget-0 lanes and a wholly dead first block, and n_boxes
+    boxes: a wall across the fan's +x side, random boxes around it, and as
+    the last n_boxes // 8 _prep_inputs' far padding boxes. Returns (lo, hi,
+    o, inv_d, bud)."""
+    o, d, bud = _fan(2 * rb + 77, dev, seed=seed)
+    bud[::5] = 0.0
+    bud[:rb] = 0.0
+    o, _, inv_d, bud, _, _, _ = CT._prep_inputs(scene, o, d, bud,
+                                                ray_block=rb, group=1)
+    rng = np.random.default_rng(n_boxes)
+    c = rng.uniform([-60, -60, 0], [60, 60, 10], (n_boxes, 3))
+    h = rng.uniform(0.5, 8.0, (n_boxes, 3))
+    lo, hi = c - h, c + h
+    lo[0], hi[0] = (10.0, -30.0, 0.0), (12.0, 30.0, 10.0)
+    far = n_boxes - n_boxes // 8
+    lo[far:], hi[far:] = 1e9, 1e9 + 1.0
+    return (torch.from_numpy(lo.astype(np.float32)).to(dev),
+            torch.from_numpy(hi.astype(np.float32)).to(dev), o, inv_d, bud)
+
+
+@pytest.mark.parametrize("n_boxes", [1, 8, 40, 255, 1024])
+@pytest.mark.parametrize("rb", [128, 768, 2048, 16384])
+def test_flat_prep_kernel_equals_plain(small_scene, dev, rb, n_boxes):
+    """K4 against its plain version bit for bit in clusters of 1, 3 and 8
+    CTAs (ray blocks 128, 768, 2048) and at 16,384, more than 8 tiles even
+    of 1,024 lanes (8 CTAs of 2,048 lanes, 8 passes each), for 1 to 1,024
+    boxes (the entry point's limit; 40 on the 10k frames, at most 255 from
+    _prep_inputs), with dead lanes, a dead block and far boxes."""
+    lo, hi, o, inv_d, bud = _flat_case(small_scene, dev, rb, n_boxes)
+    assert rb // CT._flat_tile(rb) == {128: 1, 768: 3, 2048: 8,
+                                       16384: 8}[rb]
     n0 = CT.prep_flat.launches
-    e_k, t_k = CT.prep_flat(lo, hi, o, inv_d, bud, 1000.0, rb, rbt)
-    e_p, t_p = CT._prep_plain(lo, hi, o, inv_d, bud, 1000.0, rb, rbt)
+    e_k, t_k = CT.prep_flat(lo, hi, o, inv_d, bud, 1000.0, rb)
+    e_p, t_p = CT._prep_plain(lo, hi, o, inv_d, bud, 1000.0, rb,
+                              CT._flat_tile(rb))
     torch.cuda.synchronize()
     assert CT.prep_flat.launches == n0 + 1
     assert torch.equal(e_k, e_p) and torch.equal(t_k, t_p)
-    assert torch.isfinite(e_k).any() and torch.isinf(t_k).any()
+    assert torch.isinf(e_k[0]).all() and torch.isinf(t_k).any()
+    assert torch.isfinite(e_k).any() and torch.isfinite(t_k).any()
+
+
+@pytest.mark.parametrize("rb", [768, 16384])
+def test_flat_prep_kernel_writes_every_element(small_scene, dev, rb):
+    """rr_prep_flat called directly into entry and t_last filled with NaN
+    gives every element bit-equal to the plain version's: the kernel needs
+    no fill. The entry point refuses clusters of more than 8 CTAs and more
+    than 1,024 boxes, and the wrapper raises for the latter."""
+    from radarays_ros_tpu_torch import cuda_build
+
+    lo, hi, o, inv_d, bud = _flat_case(small_scene, dev, rb, 40, seed=5)
+    Rp, Cp, rbt = o.shape[0], lo.shape[0], CT._flat_tile(rb)
+    entry = torch.full((Rp // rb, Cp), float("nan"), device=dev)
+    t_last = torch.full((Rp,), float("nan"), device=dev)
+    lib = cuda_build.build().lib
+
+    def call(tiles, cp=Cp):
+        return lib.rr_prep_flat(
+            lo.data_ptr(), hi.data_ptr(), cp, o.data_ptr(), inv_d.data_ptr(),
+            bud.data_ptr(), Rp // (rb // tiles), rb // tiles, tiles, 1000.0,
+            entry.data_ptr(), t_last.data_ptr(), cuda_build.stream_ptr(o))
+
+    assert call(rb // rbt) == 0
+    torch.cuda.synchronize()
+    e_p, t_p = CT._prep_plain(lo, hi, o, inv_d, bud, 1000.0, rb, rbt)
+    assert torch.equal(entry, e_p) and torch.equal(t_last, t_p)
+    assert call(16) != 0 and call(rb // rbt, cp=1025) != 0
+    big = torch.zeros(1025, 3, device=dev)
+    with pytest.raises(ValueError, match="at most 1024"):
+        CT.prep_flat(big, big, o, inv_d, bud, 1000.0, rb)
 
 
 def test_small_scene_kernel_path_runs_flat_prep(small_scene, dev):

@@ -171,6 +171,8 @@ def test_from_dict_over_every_field():
             v = 7
         elif f.name == "trace_engine":
             v = "brute"
+        elif f.name == "draw_method":
+            v = "plain"
         else:
             v = v + "_x"
         d[f.name] = v
@@ -195,6 +197,15 @@ def test_reference_engine_names_map_to_the_port(ref, port):
 def test_mxu_engine_is_refused():
     with pytest.raises(ValueError, match="M8"):
         RadarModelConfig.from_dict({"trace_engine": "mxu"})
+
+
+def test_unknown_draw_method_is_refused_at_load(tmp_path):
+    """A preset whose draw_method neither package knows raises when it
+    loads, not at the first frame."""
+    path = tmp_path / "preset.yaml"
+    jcfgio.save_preset(path, JCFG.RadarModelConfig(draw_method="splat"))
+    with pytest.raises(ValueError, match="unknown draw_method 'splat'"):
+        pcfgio.load_preset(path)
 
 
 # ---------------------------------------------------------------- poses
@@ -534,3 +545,53 @@ def test_per_azimuth_pose_frame_matches_reference(motion_world, opaque):
                            local_dirs=torch.from_numpy(dirs),
                            random_begin=torch.from_numpy(begin))
     assert not torch.equal(still.image_float, got.image_float)
+
+
+# the KAIST preset's fields (bench.py:119-182) at a frame small enough for
+# the reference's interpret-mode kernels on CPU: 16 azimuths x 128 cells of
+# 0.25 m, 6 samples, 3 reflections, ray blocks of 128, the scene unbaked
+_KAIST_SMALL = dict(
+    n_angles=16, n_cells=128, resolution=0.25, n_samples=6, n_reflections=3,
+    beam_sample_dist=2, beam_sample_dist_normal_p_in_cone=0.8,
+    energy_max=0.72, signal_max=110.0, signal_denoising=1,
+    signal_denoising_triangular_width=35,
+    signal_denoising_triangular_mode=0.35, ambient_noise=2,
+    ambient_noise_at_signal_0=0.1, ambient_noise_at_signal_1=0.03,
+    ambient_noise_energy_max=0.1, ambient_noise_energy_min=0.05,
+    record_multi_reflection=True, record_multi_path=False,
+    opaque_materials=True, trace_engine="pallas3", trace_ray_block=128)
+
+
+@pytest.mark.parametrize("method", ["auto", "scatter", "sort", "pallas"])
+def test_reference_preset_draw_method_renders_in_the_port(motion_world,
+                                                          tmp_path, method):
+    """A preset the JAX package writes with each of its draw methods loads
+    through the port's load_preset (the three binning methods the reference
+    holds equal become the port's "auto") and renders on CPU within the
+    frame contract of the reference's frame under the same preset."""
+    from test_torch_pipeline import _assert_frame_contract, _inputs
+    from radarays_ros_tpu.sim.pipeline import simulate_frame_jit
+    from radarays_ros_tpu_torch.sim.pipeline import simulate_frame
+
+    st, sa, params = motion_world
+    jparams, pparams = params[True]
+    path = tmp_path / "kaist.yaml"
+    jcfgio.save_preset(path, JCFG.RadarModelConfig(**_KAIST_SMALL,
+                                                   draw_method=method),
+                       beam_width_deg=15.0)
+    assert f"draw_method: {method}" in path.read_text()
+    cfg, bw, _ = pcfgio.load_preset(path)
+    jcfg, jbw, _ = jcfgio.load_preset(path)
+    assert (cfg.draw_method, cfg.trace_engine) == ("auto", "kernel")
+    assert jcfg.draw_method == method and bw == jbw == 15.0
+    pose = ptf.make_pose([0.5, -0.3, 1.0])
+    key = jax.random.PRNGKey(21)
+    ref = simulate_frame_jit(sa, jparams, jcfg, jnp.asarray(pose),
+                             tuple(jax.random.split(key)))
+    dirs, begin = _inputs(key, cfg, jparams.beam_width)
+    got = simulate_frame(st, pparams, cfg, torch.from_numpy(pose),
+                         local_dirs=torch.from_numpy(dirs),
+                         random_begin=torch.from_numpy(begin))
+    assert (got.image_u8 > 0).any()
+    _assert_frame_contract(got.image_float, got.max_val, got.image_u8,
+                           ref.image_float, ref.max_val, ref.image_u8)

@@ -103,36 +103,39 @@ def test_hier_prep_matches_reference(scenes, kernels):
     assert np.isfinite(entry.numpy()).any()
 
 
+@pytest.mark.parametrize("rb", [128, 768, 2048])
 @pytest.mark.parametrize("kernels", [False, True])
-def test_flat_prep_matches_reference(kernels):
+def test_flat_prep_matches_reference(kernels, rb):
     """Plain K4 (the flat prep, via _run_prep and via the wrapper) equals
     the reference's _run_prep_kernel flat branch (interpret) bit for bit on
-    a scene under 256 supergroups."""
+    a scene under 256 supergroups, at the ray blocks whose clusters on the
+    card hold 1, 3 and 8 CTAs (three blocks, the last one partly padding)."""
     parts, names = make_urban_scene(n_buildings=200, extent=60.0, seed=3)
     st = Scene.compose(parts, names, chunk_size=32).to_device("cpu")
-    o, d, bud = _fan(512, seed=7)
+    o, d, bud = _fan(2 * rb + 77, seed=7)
     o, d, inv_d, bud, lo, hi, C2 = CT._prep_inputs(
         st, torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(bud),
-        ray_block=RB, group=1)
+        ray_block=rb, group=1)
     Cp = lo.shape[0]
     assert C2 == st.n_chunks == 80 and Cp < 8 * CT._SG
-    B = o.shape[0] // RB
+    assert rb // CT._flat_tile(rb) == {128: 1, 768: 3, 2048: 8}[rb]
+    B = o.shape[0] // rb
     CT.prep_flat.launches = 0
-    entry, t_last = CT._run_prep(lo, hi, o, inv_d, bud, t_max=1000.0, RB=RB,
+    entry, t_last = CT._run_prep(lo, hi, o, inv_d, bud, t_max=1000.0, RB=rb,
                                  kernels=kernels)
     assert CT.prep_flat.launches == 0      # CPU tensors: plain version
     r_entry, r_tlast = JP._run_prep_kernel(
         jnp.asarray(lo.numpy()), jnp.asarray(hi.numpy()),
-        jnp.asarray(o.numpy().reshape(B, RB, 3).transpose(0, 2, 1)),
-        jnp.asarray(inv_d.numpy().reshape(B, RB, 3).transpose(0, 2, 1)),
-        jnp.asarray(bud.numpy().reshape(B, 1, RB)), Cp=Cp, RB=RB,
+        jnp.asarray(o.numpy().reshape(B, rb, 3).transpose(0, 2, 1)),
+        jnp.asarray(inv_d.numpy().reshape(B, rb, 3).transpose(0, 2, 1)),
+        jnp.asarray(bud.numpy().reshape(B, 1, rb)), Cp=Cp, RB=rb,
         n_blocks=B, t_max=1000.0, interpret=True)
     np.testing.assert_array_equal(entry.numpy(), np.asarray(r_entry))
     np.testing.assert_array_equal(t_last.numpy(),
                                   np.asarray(r_tlast).reshape(-1))
     assert np.isfinite(entry.numpy()).any() and np.isinf(
         entry.numpy()).any()
-    w_entry, w_tlast = CT.prep_flat(lo, hi, o, inv_d, bud, 1000.0, RB, RB)
+    w_entry, w_tlast = CT.prep_flat(lo, hi, o, inv_d, bud, 1000.0, rb)
     assert torch.equal(w_entry, entry) and torch.equal(w_tlast, t_last)
 
 
