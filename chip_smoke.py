@@ -69,14 +69,35 @@ Phases (one line of figures each; any failure raises and exits non-zero):
      e. `eval` stamp-synced against 8b's frames, `render` of one frame, and
         `optimize` (10 gradient steps, slot 1) on the 10k scene's PLY: a
         finite loss, a checkpoint, and an --out-config read back;
-  9. the profiler's figures, taken last because a torch.profiler session
+  9. the trace extras and the explorer:
+     a. the saturated trace (benchmarks/engines.py --saturated) on phase
+        5's scene, engine "kernel", ray block 2048, four sets of
+        1,048,576 rays: (i) the coherent fan, (ii) incoherent rays
+        (random origins and directions) unsorted, (iii) sorted by
+        sort_rays, (iv) sorted with the two-phase requeue at 75 m — each
+        set's Mrays/s (median of 3, CUDA events), hit rate, peak memory,
+        K1-K3 launches and bounds, and brute on 2,048 of its rays under
+        the trace contract; (iii) and (iv) against (ii) (hit equal, t
+        within rtol 1e-5, obj_id apart on under 2 % of the lanes and only
+        on exact-distance ties); K3, K2 and K1 bitwise against their plain
+        versions on 131,072 rays of (iii);
+     b. a KAIST batch at ~1M triangles with trace_two_phase_cap 75 against
+        single phase: one frame under the frame contract, K1-K3 twice a
+        bounce, frames/s of both in turns;
+     c. the "mxu" engine with TF32 off: the trace gate's 4,096 rays
+        against brute (0 hit, 0 object mismatches), and a KAIST batch on
+        the 10k companion — one frame under the frame contract of the
+        kernel frame, ms per bounce, peak memory, frames/s;
+     d. the explorer panels on the card against the CPU, and `explore
+        --panel fresnel --json` through the CLI;
+ 10. the profiler's figures, taken last because a torch.profiler session
      leaves the host slower for the rest of the process: one batch of
      phases 5 and 6 each under torch.profiler (its kernels, copies,
      synchronizing calls, the device's idle share, and no copy issued
      inside bin_signals, by a check that must count the copy of its
      positive control, made inside a range of that name), every
-     kernel's time at the shapes and on the inputs of phases 3, 5, 6
-     and 7, and a check that each K4 call is its one kernel (no fill,
+     kernel's time at the shapes and on the inputs of phases 3, 5, 6,
+     7 and 9a, and a check that each K4 call is its one kernel (no fill,
      memset or copy in its profiled window).
 A kernel's time (ms) is its mean device time per launch from
 torch.profiler's CUDA activity over a loop of wrapper calls (K3's and K4's
@@ -133,6 +154,8 @@ FIT_STEPS = 60       # Adam steps of phase 7, split around a checkpoint
 FIT_TARGET_DB = 40.0
 CLI_FRAMES = 8       # frames of phase 8b's synced replay
 CLI_SEED = 5
+SAT_RAYS = 1_048_576  # rays of each saturated-trace set (phase 9a)
+SAT_CAP = 75.0       # its two-phase cap [m] (benchmarks/engines.py:128)
 # bench.py:119-182: air, and opaque wall-stone on every object
 AIR = dict(velocity=0.3, ambient=1.0, diffuse=0.0, specular=1.0)
 WALL = dict(velocity=0.0, ambient=1.0, diffuse=0.0, specular=3000.0)
@@ -212,13 +235,13 @@ def kernel_ms(fn, reps: int, name: str, whole: bool = False) -> dict:
 # Profiler work waits until every end-to-end figure is taken: after a
 # torch.profiler session the host enqueues more slowly for the rest of the
 # process (on the H100 the host-bound batches of phases 5 and 6 ran slower
-# behind one), so kernel_ms and batch_profile run in phase 9, after the
-# CLI.
+# behind one), so kernel_ms and batch_profile run in phase 10, after the
+# CLI and the trace extras.
 DEFERRED = []
 
 
 def timed(row: dict, fn, reps: int, name: str, whole: bool = False) -> dict:
-    """Queue kernel_ms(fn, reps, name, whole) for phase 9, which adds its
+    """Queue kernel_ms(fn, reps, name, whole) for phase 10, which adds its
     figures to row; returns row."""
     DEFERRED.append(lambda: row.update(kernel_ms(fn, reps, name, whole)))
     return row
@@ -519,7 +542,7 @@ def tap_windows(mask, W: int, mode: int):
 
 
 def kernel_rows(by_bounce: list, k5: dict) -> dict:
-    """A path's kernels after phase 9: per_launch over the bounces for the
+    """A path's kernels after phase 10: per_launch over the bounces for the
     trace kernels, K5 and its backward (one launch a batch) as they are."""
     rows = {k: per_launch([b[k] for b in by_bounce]) for k in by_bounce[0]}
     for k, v in k5.items():
@@ -835,7 +858,7 @@ def frames_phase(tag: str, st, params, cfg, dev, expect_zero=(),
     its columns), each kernel of the path vs its plain version on each
     bounce of a batch, and one frame through the kernels and through the
     plain versions under the frame contract; the batch profile and the
-    kernels' times are queued for phase 9. Returns (frame figures,
+    kernels' times are queued for phase 10. Returns (frame figures,
     launches, the trace kernels vs plain by bounce, K5 and its backward vs
     plain, frame vs plain)."""
     import torch
@@ -1419,6 +1442,477 @@ def cli_phase(dev, scene5, host5, cfg, info5, scene10) -> dict:
     return info
 
 
+def saturated_sets(st) -> dict:
+    """The ray sets of benchmarks/engines.py:51-68 (each drawn from
+    default_rng(0)), SAT_RAYS rays on st's device: the coherent fan
+    (400 azimuths from (0, 0, 2)) and the incoherent set (random
+    directions from random origins in the middle 80 % of the bounding box
+    of the scene's real chunks)."""
+    import numpy as np
+    import torch
+
+    dev = st.device
+    rng = np.random.default_rng(0)
+    A = 400
+    S = SAT_RAYS // A
+    az = np.repeat(np.linspace(0, 2 * np.pi, A, endpoint=False), S)
+    el = np.tile(rng.normal(0, 0.06, S), A)
+    d = np.stack([np.cos(el) * np.cos(az), np.cos(el) * np.sin(az),
+                  np.sin(el)], -1).astype(np.float32)
+    o = np.broadcast_to(np.array([0, 0, 2.0], np.float32), d.shape).copy()
+    sets = {"coherent": (o, d)}
+    rng = np.random.default_rng(0)
+    d = rng.normal(size=(SAT_RAYS, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    lo_c, hi_c = st.chunk_lo.cpu().numpy(), st.chunk_hi.cpu().numpy()
+    real = hi_c[:, 0] < 1e7                     # not the far padding chunks
+    lo, hi = lo_c[real].min(0), hi_c[real].max(0)
+    o = lo + rng.uniform(0.1, 0.9, size=(SAT_RAYS, 3)) * (hi - lo)
+    sets["incoherent"] = (o.astype(np.float32), d.astype(np.float32))
+    return {k: tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in v) for k, v in sets.items()}
+
+
+def sweep_bounds(st, o, d, bud, rb: int) -> dict:
+    """The bounds of K3, K2 and K1 (bound()) on one sweep_winners call's
+    rays, counted as kernels_vs_plain counts them, from the kernels'
+    own outputs (no plain version: the unsorted set would take minutes)."""
+    import torch
+
+    from radarays_ros_tpu_torch.trace import cuda_trace as CT
+
+    o, d, inv_d, bud, lo, hi, C2 = CT._prep_inputs(st, o, d, bud,
+                                                    ray_block=rb, group=1)
+    Rp, Cp = o.shape[0], lo.shape[0]
+    rbt = next(r for r in (1024, 512, 256, 128) if rb % r == 0)
+    slo, shi = CT._coarse_boxes(lo, hi)
+    w = CT.coarse_words(slo, shi, o, inv_d, bud, 1000.0, rbt)
+    e, t_last = CT.prep_hier(w, lo, hi, o, inv_d, bud, 1000.0, rb, rbt)
+    nvisit, order, entry = CT._rank(e[:, :C2])
+    bt, _, _ = CT.sweep(nvisit, order, entry, o, d, t_last, st.coef,
+                        st.fetch, tc=st.chunk_size, group=1, t_min=0.0)
+    kept, seen = lane_kept(lo[:C2], hi[:C2], o, inv_d,
+                           torch.clamp_max(bud, 1000.0),
+                           torch.minimum(bt, t_last))
+    ray_bytes = Rp * (12 + 12 + 4)
+    return dict(
+        live_lanes=int((bud > 0).sum()),
+        coarse_words=bound(Rp * slo.shape[0] * OPS_SLAB,
+                           ray_bytes + slo.shape[0] * 24 + w.numel() * 4),
+        prep_hier=bound(int(popcount(w).sum()) * CT._SG * rbt * OPS_SLAB,
+                        ray_bytes + Cp * 24 + w.numel() * 4
+                        + e.numel() * 4 + t_last.numel() * 4),
+        sweep=dict(bound(float(kept.sum()) * st.chunk_size * OPS_PAIR,
+                         int(seen.sum()) * st.chunk_size * 22 * 4 + ray_bytes
+                         + order.numel() * 8 + Rp * (4 + 4 + 64)),
+                   chunks_kept_lane_mean=float(kept.float().mean()),
+                   ranked_chunks_mean=float(nvisit.float().mean())))
+
+
+def trace_kernel_ms(fn, reps: int) -> dict:
+    """One profile of `reps` calls of fn (a whole trace): the mean device
+    time per launch of K1, K2 and K3 (K3 without its memset, which the
+    window's other work hides), each launch's in order (under the
+    two-phase requeue phase 1, then phase 2) and the launches caught."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    out = {}
+    for k in ("sweep", "prep_hier", "coarse_words"):
+        mine = [e for e in dev if KERNEL[k] in e.name]
+        each = [e.time_range.elapsed_us() / 1e3 for e in mine]
+        out[k] = dict(profiled_launches=len(mine),
+                      ms=sum(each) / max(len(each), 1), ms_by_launch=each)
+    return out
+
+
+def trace_contract(want, got, idx=None, ties: bool = False) -> dict:
+    """tests/test_trace.py:77-83 between two TraceResults (at rows idx of
+    got): hit equal, t within 1e-4 on hits, normals within 1e-4, obj_id
+    equal — or, with ties, differing on under 2 % of the lanes, each at
+    the same distance within 1e-5."""
+    import torch
+
+    if idx is not None:
+        got = type(got)(*(None if x is None else x[idx] for x in got))
+    hit = want.hit
+    check(torch.equal(hit, got.hit), "trace contract: hits differ")
+    dt = float((want.t[hit] - got.t[hit]).abs().max()) if hit.any() else 0.0
+    check(torch.allclose(got.t[hit], want.t[hit], rtol=1e-4, atol=1e-4),
+          f"trace contract: t {dt} apart")
+    obj = want.obj_id != got.obj_id
+    share = float(obj.float().mean())
+    check(torch.allclose(got.normal[~obj], want.normal[~obj], atol=1e-4),
+          "trace contract: normals differ")
+    if ties:
+        check(share < 0.02 and torch.allclose(
+            got.t[obj], want.t[obj], rtol=1e-5),
+              f"obj_id differs on {share:.4%} of the lanes, or off ties")
+    else:
+        check(not bool(obj.any()), f"trace contract: {int(obj.sum())} obj_id "
+              "mismatches")
+    return dict(hit_mismatches=0, obj_mismatches=int(obj.sum()),
+                obj_mismatch_share=share, max_abs_dt=dt)
+
+
+SAT_SETS = (("i coherent", "coherent", {}),
+            ("ii incoherent", "incoherent", {}),
+            ("iii incoherent sorted", "incoherent", {"sort_rays": True}),
+            ("iv incoherent sorted two-phase", "incoherent",
+             {"sort_rays": True, "two_phase_cap": SAT_CAP}))
+
+
+def saturated_phase(st, smi: str) -> dict:
+    """Phase 9a: the saturated trace (benchmarks/engines.py --saturated)
+    on phase 5's scene, engine "kernel", ray block 2048, for each of
+    SAT_SETS: Mrays/s (median of 3 traces, CUDA events), hit rate, peak
+    device memory, the K1/K2/K3 launches of one trace, the brute oracle on
+    a 2048-ray subset, the kernels' bounds on each sweep's rays and (queued
+    for phase 10) their device time per launch; then the gates: (iii) and
+    (iv) against (ii), and K3/K2/K1 bitwise against their plain versions
+    on a 131,072-ray slice of (iii)."""
+    import torch
+
+    from radarays_ros_tpu_torch.trace import cuda_trace as CT
+    from radarays_ros_tpu_torch.trace.api import trace
+
+    rays = saturated_sets(st)
+    out, res = {}, {}
+    for tag, which, kw in SAT_SETS:
+        t_set = time.perf_counter()
+        o, d = rays[which]
+        n = o.shape[0]
+        sub = torch.arange(0, n, n // 2048, device=st.device)[:2048]
+
+        def run(o=o, d=d, kw=kw):
+            return trace(st, o, d, engine="kernel", ray_block=2048, **kw)
+
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        calls = []
+        winners = CT.sweep_winners
+
+        def spy(scene, origs, dirs, budget, **k):
+            calls.append((origs, dirs, budget))
+            return winners(scene, origs, dirs, budget, **k)
+
+        CT.sweep_winners = spy
+        try:
+            wrappers = zero_counts()
+            r = run()
+            torch.cuda.synchronize()
+            launches = read_counts(wrappers)
+        finally:
+            CT.sweep_winners = winners
+        peak = torch.cuda.max_memory_allocated()
+        ms = []
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run()
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        med = sorted(ms)[1]
+        phases = 2 if "two_phase_cap" in kw else 1
+        check(all(launches[k] == phases for k in ("sweep", "prep_hier",
+                                                   "coarse_words"))
+              and launches["prep_flat"] == 0,
+              f"{tag}: launches {launches}")
+        brute = trace(st, o[sub], d[sub], engine="brute")
+        row = dict(
+            rays=int(o.shape[0]), options=kw, ms=med, ms_runs=ms,
+            mrays_per_s=o.shape[0] / med / 1e3,
+            hit_rate=float(r.hit.float().mean()),
+            peak_mib=peak / 2**20, peak_over_resident_mib=(peak - resident)
+            / 2**20, launches={k: launches[k] for k in (
+                "sweep", "prep_hier", "coarse_words")},
+            vs_brute_2048=trace_contract(brute, r, sub, ties=True),
+            bounds_by_sweep=[sweep_bounds(st, *c, rb=2048) for c in calls],
+            gpu=smi)
+        # a launch's bound, averaged over the trace's sweeps (two under
+        # the two-phase requeue)
+        row["bound_per_launch"] = {k: bound(
+            sum(b[k]["ops"] for b in row["bounds_by_sweep"]) / len(calls),
+            sum(b[k]["bytes"] for b in row["bounds_by_sweep"]) / len(calls))
+            for k in ("sweep", "prep_hier", "coarse_words")}
+        row["live_lanes_by_sweep"] = [b["live_lanes"]
+                                      for b in row["bounds_by_sweep"]]
+        res[tag] = r
+        out[tag] = row
+        row["set_s"] = time.perf_counter() - t_set
+        log(f"[9a saturated {tag}] " + json.dumps(
+            {k: v for k, v in row.items() if k != "bounds_by_sweep"}))
+        # the unsorted set's trace takes seconds: one profiled trace
+        reps = 1 if which == "incoherent" and not kw else 2
+        DEFERRED.append(lambda row=row, run=run, reps=reps:
+                        row.update(kernel_ms=trace_kernel_ms(run, reps)))
+    ref = res["ii incoherent"]
+    for tag in ("iii incoherent sorted", "iv incoherent sorted two-phase"):
+        got = res[tag]
+        check(torch.equal(ref.hit, got.hit), f"{tag}: hits differ from (ii)")
+        check(torch.allclose(got.t[ref.hit], ref.t[ref.hit], rtol=1e-5),
+              f"{tag}: t differs from (ii)")
+        out[tag]["vs_ii"] = trace_contract(ref, got, ties=True)
+        out[tag]["bitwise_vs_ii"] = all(
+            torch.equal(a, b) for a, b in zip(ref[:4], got[:4]))
+        log(f"[9a {tag} vs ii] {json.dumps(out[tag]['vs_ii'])}")
+    # the kernels against their plain versions on a slice of (iii)
+    t_slice = time.perf_counter()
+    o, d = rays["incoherent"]
+    perm = torch.sort(CT._ray_sort_key(o, d), stable=True).indices[:GATE_RAYS]
+    bud = torch.full((GATE_RAYS,), 1000.0, device=st.device)
+    out["kernels_sorted_slice"] = mk = kernels_vs_plain(
+        st, o[perm].contiguous(), d[perm].contiguous(), bud, rb=2048, reps=5)
+    out["kernels_sorted_slice_s"] = time.perf_counter() - t_slice
+    log(f"[9a kernels vs plain, {GATE_RAYS} rays of (iii)] " + json.dumps(
+        {k: {kk: v[kk] for kk in ("bitwise", "max_abs_err", "plain_ms",
+                                  "bound_ms", "bound_by")}
+         for k, v in mk.items()}))
+    return out
+
+
+def batches_per_s(st, params, cfg, reps: int = 3) -> float:
+    """Frames/s of `reps` KAIST batches after a warm-up batch (CUDA
+    events), the draws from one generator seeded 0."""
+    import torch
+
+    from radarays_ros_tpu_torch.sim import pipeline as P
+
+    poses = batch_poses()
+    gen = torch.Generator(st.device).manual_seed(0)
+    with torch.no_grad():
+        ms = cuda_ms(lambda: P.simulate_frames(st, params, cfg, poses,
+                                               generator=gen), reps)
+    return BATCH / (ms / 1e3)
+
+
+def frame_pair(st, params, cfg, other, seed: int = 1) -> dict:
+    """One KAIST frame under cfg and under `other` on the same explicit
+    draws: the frame contract of the second against the first."""
+    import torch
+
+    from radarays_ros_tpu_torch.sim import pipeline as P
+    from radarays_ros_tpu_torch.wave.cone import sample_cone_local
+
+    g = torch.Generator(st.device).manual_seed(seed)
+    kw = dict(local_dirs=sample_cone_local(
+        g, params.beam_width, cfg.n_samples, cfg.beam_sample_dist,
+        cfg.beam_sample_dist_normal_p_in_cone),
+        random_begin=torch.randint(0, 1000, (cfg.n_angles,), generator=g,
+                                   device=st.device))
+    pose = batch_poses()[0]
+    with torch.no_grad():
+        want = P.simulate_frame(st, params, cfg, pose, **kw)
+        got = P.simulate_frame(st, params, other, pose, **kw)
+    return frame_contract(got, want)
+
+
+def two_phase_frames(st, params, cfg, smi: str) -> dict:
+    """Phase 9b: the KAIST batch at ~1M triangles with trace_two_phase_cap
+    SAT_CAP against single phase: one frame under the frame contract (and
+    whether it is bit-identical), the launches of one batch (K1-K3 twice a
+    bounce), and frames/s of both in turns (single, two-phase, two-phase,
+    single)."""
+    import torch
+
+    from radarays_ros_tpu_torch.sim import pipeline as P
+
+    cfg2 = cfg.replace(trace_two_phase_cap=SAT_CAP)
+    out = dict(cap_m=SAT_CAP, frame_vs_single=frame_pair(st, params, cfg,
+                                                         cfg2))
+    wrappers = zero_counts()
+    with torch.no_grad():
+        P.simulate_frames(st, params, cfg2, batch_poses(),
+                          generator=torch.Generator(st.device).manual_seed(0))
+    torch.cuda.synchronize()
+    out["launches_per_batch"] = launches = read_counts(wrappers)
+    check(all(launches[k] == 2 * cfg.n_reflections
+              for k in ("sweep", "prep_hier", "coarse_words")),
+          f"two-phase launches {launches}")
+    runs = [("single", cfg), ("two_phase", cfg2), ("two_phase", cfg2),
+            ("single", cfg)]
+    fps = [(name, batches_per_s(st, params, c)) for name, c in runs]
+    out.update(frames_per_s_in_turns=fps, gpu=smi)
+    log(f"[9b two-phase frames] {json.dumps(out)}")
+    return out
+
+
+def mxu_phase(gate, o, d, brute, dev, smi: str) -> dict:
+    """Phase 9c: the "mxu" engine — against the brute oracle on the trace
+    gate's 4096 rays (0 hit and 0 object mismatches), then a KAIST batch on
+    the 10k companion: one frame under the frame contract of the kernel
+    frame, ms per bounce (CUDA events, each bounce's rays and budgets), the
+    peak memory of one bounce's trace, frames/s, and the TF32 switches."""
+    import torch
+
+    from radarays_ros_tpu_torch.geom.scene import with_planes
+    from radarays_ros_tpu_torch.trace.api import trace
+
+    tf32 = dict(matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+                matmul_precision=torch.get_float32_matmul_precision())
+    check(not tf32["matmul_allow_tf32"]
+          and tf32["matmul_precision"] == "highest", f"TF32 on: {tf32}")
+    rm = trace(with_planes(gate), o, d, engine="mxu")
+    out = dict(tf32, gate_rays=int(o.shape[0]),
+               gate_vs_brute=trace_contract(brute, rm))
+    _, st, params, cfg, info, _ = kaist_setup(dev, n_buildings=800)
+    st = with_planes(st)
+    mcfg = cfg.replace(trace_engine="mxu")
+    out.update(n_triangles=info["n_triangles"], tri_chunk=cfg.trace_tri_chunk,
+               frame_vs_kernel=frame_pair(st, params, cfg, mcfg))
+    gen = torch.Generator(dev).manual_seed(0)
+    waves0, sensor_pos, _ = batch_waves(params, cfg, batch_poses(), gen, dev)
+    ms, peak = [], []
+    for _, _, o_b, d_b, bud in bounce_rays(st, params, mcfg, waves0,
+                                           sensor_pos):
+        def run(o_b=o_b, d_b=d_b, bud=bud):
+            return trace(st, o_b, d_b, engine="mxu", t_budget=bud,
+                         ray_block=cfg.trace_ray_block,
+                         tri_chunk=cfg.trace_tri_chunk)
+
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        run()
+        torch.cuda.synchronize()
+        peak.append((torch.cuda.max_memory_allocated() - resident) / 2**20)
+        ms.append(cuda_ms(run, 3))
+    out.update(rays_per_bounce=int(waves0.valid.numel()), ms_by_bounce=ms,
+               ms_per_bounce=sum(ms) / len(ms), peak_over_resident_mib=peak,
+               frames_per_s=batches_per_s(st, params, mcfg),
+               kernel_frames_per_s=batches_per_s(st, params, cfg), gpu=smi)
+    log(f"[9c mxu] {json.dumps(out)}")
+    return out
+
+
+def fresnel_spread(v1: float, v2: float) -> dict:
+    """How far fresnel_curve(v1, v2)'s outputs move on the CPU when its
+    incidence directions move by one or two f32 ulps in x or z: the
+    reference's angle form is ill-conditioned near normal incidence
+    (acos near 1) and near the critical angle (the refraction root near
+    0), where the card's and the CPU's transcendentals, each within a few
+    ulps, may land that far apart. Per point, for each output."""
+    import numpy as np
+    import torch
+
+    from radarays_ros_tpu_torch.wave.fresnel import fresnel_split
+
+    n_pts = 181
+    angles = np.linspace(0.0, np.pi / 2.0 - 1e-3, n_pts).astype(np.float32)
+    d0 = np.stack([np.sin(angles), np.zeros_like(angles), -np.cos(angles)],
+                  -1)
+
+    def outputs(d):
+        full = [torch.full((n_pts,), x) for x in (1.0, 0.5, v1, v2)]
+        res = fresnel_split(torch.tensor([0.0, 0.0, 1.0]).expand(n_pts, 3),
+                            torch.from_numpy(d), *full)
+        refr = res.refraction_dir.numpy()
+        return {"reflectance": res.reflection_energy.numpy(),
+                "transmittance": res.refraction_energy.numpy(),
+                "refraction_angle_deg": np.degrees(np.arctan2(
+                    np.abs(refr[:, 0]), np.maximum(-refr[:, 2], 1e-12)))}
+
+    base = outputs(d0)
+    spread = {k: np.zeros(n_pts) for k in base}
+    for ax in (0, 2):
+        for way in (np.float32(np.inf), np.float32(-np.inf)):
+            d = d0.copy()
+            for _ in range(2):
+                d[:, ax] = np.nextafter(d[:, ax], way)
+                for k, v in outputs(d).items():
+                    dv = np.abs(v - base[k])
+                    spread[k] = np.maximum(spread[k], np.where(
+                        np.isfinite(dv), dv, 0.0))
+    return spread
+
+
+def explorer_phase(dev) -> dict:
+    """Phase 9d: each explorer panel's data on the card against the same
+    call on the CPU: brdf and slab within rtol and atol 1e-6, the slab
+    tree's structure equal; fresnel within the same plus, at each point,
+    the CPU's own move under a one- or two-ulp change of the incidence
+    direction (fresnel_spread), the points beyond 1e-6 counted; beams by
+    the reference's statistics (tests/test_viz.py:74-89; the card's draws
+    are its own); and `cli explore --panel fresnel --json` on the card."""
+    import tempfile
+
+    import numpy as np
+
+    from radarays_ros_tpu_torch.viz.beams import beam_panel
+    from radarays_ros_tpu_torch.viz.brdf import brdf_curve, fresnel_curve
+    from radarays_ros_tpu_torch.viz.reflections import propagate_slab_rays
+
+    def close(a, b, what, slack=0.0):
+        a, b = np.asarray(a, float), np.asarray(b, float)
+        lim = 1e-6 + 1e-6 * np.abs(b) + slack
+        check(a.shape == b.shape and bool(np.all(
+            (np.abs(a - b) <= lim) | (np.isnan(a) & np.isnan(b)))),
+              f"explore {what}: card and CPU differ (largest difference "
+              f"{np.nanmax(np.abs(a - b)) if a.shape == b.shape else None})")
+        ok = np.isfinite(a) & np.isfinite(b)
+        return float(np.abs(a[ok] - b[ok]).max()) if ok.any() else 0.0
+
+    err, beyond = {}, {}
+    brdf = [brdf_curve(1.0, 0.2, 30.0, device=dv) for dv in (dev, "cpu")]
+    err["brdf"] = close(brdf[0]["energy"], brdf[1]["energy"], "brdf")
+    for name, v in (("fresnel_in", (0.3, 0.15)), ("fresnel_out",
+                                                  (0.15, 0.3))):
+        card, cpu = fresnel_curve(*v, device=dev), fresnel_curve(*v,
+                                                                 device="cpu")
+        check(card["total_internal_reflection"]
+              == cpu["total_internal_reflection"], f"{name}: TIR")
+        slack = fresnel_spread(*v)
+        err[name] = max(close(card[k], cpu[k], f"{name} {k}", slack[k])
+                        for k in slack)
+        beyond[name] = {k: int(np.sum(np.abs(np.asarray(card[k], float)
+                                             - np.asarray(cpu[k], float))
+                                      > 1e-6)) for k in slack}
+    card = propagate_slab_rays([0.0, -0.2], [0.3, 0.15, 0.3], device=dev)
+    cpu = propagate_slab_rays([0.0, -0.2], [0.3, 0.15, 0.3], device="cpu")
+    for k in ("segments", "leaks"):
+        check(len(card[k]) == len(cpu[k]) > 0
+              and all(a["medium"] == b["medium"]
+                      for a, b in zip(card[k], cpu[k])), f"slab {k}")
+    err["slab"] = max(close([s[f] for s in card[k]], [s[f] for s in cpu[k]],
+                            f"slab {k} {f}")
+                      for k, fs in (("segments", ("p0", "p1", "energy")),
+                                    ("leaks", ("p0", "dir", "energy")))
+                      for f in fs)
+    panel = beam_panel(width_deg=8.0, n_samples=4000, p_in_cone=0.8, seed=1,
+                       device=dev)
+    fr = {k: v["frac_in_cone"] for k, v in panel.items()}
+    h1 = np.asarray(panel["D1_uniform_radius"]["r_hist"], float)
+    h2 = np.asarray(panel["D2_uniform_disk"]["r_hist"], float)
+    check(fr["D1_uniform_radius"] == 1.0 and fr["D2_uniform_disk"] == 1.0
+          and abs(fr["D3_normal"] - 0.8) <= 0.03
+          and h2[-8:].sum() / h2.sum() > h1[-8:].sum() / h1.sum(),
+          f"beam statistics {fr}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fresnel.json")
+        cli(["explore", "--panel", "fresnel", "--v1", 0.3, "--v2", 0.15,
+             "--json", path, "--device", "cuda"])
+        data = json.loads(open(path).read())
+    want = fresnel_curve(0.3, 0.15, device=dev)
+    check(json.dumps(data) == json.dumps(want),
+          "cli explore --json differs from the in-process data")
+    out = dict(max_abs_diff_card_vs_cpu=err,
+               fresnel_points_beyond_1e6=beyond, beams_frac_in_cone=fr,
+               cli_explore_fresnel_json=True)
+    log(f"[9d explore] {json.dumps(out)}")
+    return out
+
+
 def kernel_times(dev, smi: str, phases=("5", "6")) -> dict:
     """The --kernel-times run, through the port that sys.path finds first
     (main puts ROOT there): for each frame path in phases (phase 5's
@@ -1578,7 +2072,8 @@ def main() -> int:
     log(f"[4 trace gate] {json.dumps(details['trace_gate'])}")
     check(hit_mm == 0 and obj_mm == 0, "trace gate mismatches")
     check(brute_ok, "brute contract on the 4096-ray subset")
-    del gate, rk, rs, o, d
+    gate_sub = (gate, o[sub], d[sub], rb_)        # for phase 9c
+    del rk, rs, o, d
 
     # ---- 5. frames on the main path
     scene, st, params, cfg, info, host5 = kaist_setup(dev)
@@ -1609,18 +2104,37 @@ def main() -> int:
     # ---- 8. the command line on the card
     details["cli"] = cli_phase(dev, scene5, host5, cfg5, info5, scene10)
     details["cli"]["gpu"] = smi
-    del scene5, host5, scene10
 
-    # ---- 9. the profiler's figures, after every end-to-end figure
+    # ---- 9. the trace extras on the card, and the explorer
+    t0 = time.perf_counter()
+    st5, params5 = kaist_tensors(host5, scene5.n_objects, dev)
+    del scene5, host5, scene10
+    details["saturated"] = saturated_phase(st5, smi)
+    t1 = time.perf_counter()
+    details["two_phase_frames"] = two_phase_frames(st5, params5, cfg5, smi)
+    del st5
+    t2 = time.perf_counter()
+    details["mxu"] = mxu_phase(*gate_sub, dev, smi)
+    del gate_sub
+    t3 = time.perf_counter()
+    details["explore"] = explorer_phase(dev)
+    details["phase_9_parts_s"] = dict(
+        saturated=t1 - t0, two_phase_frames=t2 - t1, mxu=t3 - t2,
+        explore=time.perf_counter() - t3)
+    details["phase_9_s"] = time.perf_counter() - t0
+    log(f"[9 trace extras] {details['phase_9_s']:.1f} s "
+        f"{json.dumps(details['phase_9_parts_s'])}")
+
+    # ---- 10. the profiler's figures, after every end-to-end figure
     t0 = time.perf_counter()
     while DEFERRED:
         DEFERRED.pop(0)()
     control = copy_check_control(dev)
     details["copy_check_control"] = control
-    log(f"[9 copy check, positive control] memcpy_calls_in_bin {control}")
+    log(f"[10 copy check, positive control] memcpy_calls_in_bin {control}")
     check(control >= 1, "the copy check missed a copy made inside _Bin")
     for tag, fr in (("5", frames), ("6", frames10)):
-        log(f"[9 batch profile, phase {tag}] {json.dumps(fr['profile'])}")
+        log(f"[10 batch profile, phase {tag}] {json.dumps(fr['profile'])}")
         check(fr["profile"]["bin_calls"] > 0
               and fr["profile"]["memcpy_calls_in_bin"] == 0,
               "bin_signals issued a copy")
@@ -1632,25 +2146,31 @@ def main() -> int:
                      other_device_events=r.get("other_device_events"))
              for k, r in flat}
     details["prep_flat_alone"] = alone
-    log(f"[9 K4 launches alone] {json.dumps(alone)}")
+    log(f"[10 K4 launches alone] {json.dumps(alone)}")
     check(all(v["profiled_launches"] > 0 and v["other_device_events"] == 0
               for v in alone.values()),
           "a K4 wrapper call ran device work besides its kernel")
     times = ("ms", "wrapper_ms", "ms_source")
-    log("[9 kernel times, gate shapes] " + json.dumps(
+    log("[10 kernel times, gate shapes] " + json.dumps(
         {k: {kk: v[kk] for kk in times} for k, v in gk.items()}))
     for tag, bb in (("5", bb5), ("6", bb6)):
         for i, mb in enumerate(bb):
-            log(f"[9 kernel times, phase {tag} bounce {i + 1}] " + json.dumps(
+            log(f"[10 kernel times, phase {tag} bounce {i + 1}] " + json.dumps(
                 {k: {kk: v[kk] for kk in times} for k, v in mb.items()}))
     mk, mk10 = kernel_rows(bb5, k5_5), kernel_rows(bb6, k5_6)
     details.update(kernels_main_path=mk, kernels_10k=mk10)
     for tag, rows in (("5", mk), ("6", mk10),
                       ("7", details["fit"]["kernels_fit_shapes"])):
-        log(f"[9 kernel times, phase {tag}, per launch] " + json.dumps(
+        log(f"[10 kernel times, phase {tag}, per launch] " + json.dumps(
             {k: {kk: v[kk] for kk in (*times, "plain_ms", "bound_ms",
                                       "bound_by") if kk in v}
              for k, v in rows.items() if isinstance(v, dict)}))
+    sat = details["saturated"]
+    log("[10 kernel times, saturated sets, per launch] " + json.dumps(
+        {tag: {k: dict(v, **{kk: sat[tag]["bound_per_launch"][k][kk]
+                             for kk in ("bound_ms", "bound_by")})
+               for k, v in sat[tag]["kernel_ms"].items()}
+         for tag, _, _ in SAT_SETS}))
     details["profiler_phase_s"] = time.perf_counter() - t0
 
     source = {"sweep": "radarays_ros_tpu_torch/csrc/sweep.cu",

@@ -172,7 +172,9 @@ class SceneHost(NamedTuple):
 
 class SceneTensors(NamedTuple):
     """Device scene consumed by the tracers (all torch tensors on one
-    device, except the static chunk_size)."""
+    device, except the static chunk_size). The plane tables of the "mxu"
+    engine (112 bytes a triangle) are made only for scenes that engine
+    traces (`with_planes`)."""
 
     verts: torch.Tensor       # (T, 3, 3) f32 — brute oracle
     obj_ids: torch.Tensor     # (T,) int32
@@ -182,6 +184,8 @@ class SceneTensors(NamedTuple):
     chunk_lo: torch.Tensor    # (C, 3) f32
     chunk_hi: torch.Tensor    # (C, 3) f32
     chunk_size: int
+    planes_o: Optional[torch.Tensor] = None   # (4T, 4) f32, or None
+    planes_d: Optional[torch.Tensor] = None   # (4T, 3) f32, or None
 
     @property
     def n_triangles(self) -> int:
@@ -208,6 +212,49 @@ def bake_tri_aux(st: SceneTensors, tri_aux) -> SceneTensors:
     fetch = st.fetch.clone()
     fetch[:, 13] = row
     return st._replace(fetch=fetch)
+
+
+def cross3(a, b):
+    """a x b over the last axis, each product and difference rounded
+    separately in np.cross's order."""
+    return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+                        a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                        a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], -1)
+
+
+def plane_tables(verts: torch.Tensor):
+    """`_triangle_planes` in torch on the verts' device, in NumPy's
+    operation order (bit-identical to the host build's planes_o): returns
+    planes_o (4T, 4) [support, edge0, edge1, edge2] and planes_d (4T, 3),
+    their normals."""
+    def dot(a, b):
+        return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) \
+            + a[..., 2] * b[..., 2]
+
+    def unit(v):
+        # the f32 root correctly rounded (torch's f32 sqrt on the CPU is
+        # not always; the f64 root of an f32 rounds to the same f32)
+        norm = torch.sqrt(dot(v, v).double()).float()
+        return v / torch.clamp_min(norm, 1e-30)[..., None]
+
+    v0, v1, v2 = verts[:, 0], verts[:, 1], verts[:, 2]
+    n_unit = unit(cross3(v1 - v0, v2 - v0))
+    normals, offsets = [n_unit], [-dot(n_unit, v0)]
+    for a, b in ((v0, v1), (v1, v2), (v2, v0)):
+        m = unit(cross3(n_unit, b - a))
+        normals.append(m)
+        offsets.append(-dot(m, a))
+    planes_d = torch.stack(normals, dim=1).reshape(-1, 3)
+    offsets = torch.stack(offsets, dim=1).reshape(-1, 1)
+    return torch.cat([planes_d, offsets], dim=1), planes_d
+
+
+def with_planes(st: SceneTensors) -> SceneTensors:
+    """`st` with the "mxu" engine's plane tables, built on its device."""
+    if st.planes_o is not None:
+        return st
+    planes_o, planes_d = plane_tables(st.verts)
+    return st._replace(planes_o=planes_o, planes_d=planes_d)
 
 
 @dataclasses.dataclass

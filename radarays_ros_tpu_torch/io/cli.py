@@ -18,14 +18,16 @@
   * `optimize`    — fit material properties to a target frame.
   * `eval`        — real-vs-sim metrics, dir-vs-dir or stamp-synced.
   * `render`      — paper-style cartesian view of a polar frame + stats.
+  * `explore`     — the 2-D physics explorer panels (viz/explore.py): brdf,
+                    fresnel, slab and beams as JSON, a figure, or live
+                    sliders.
 
 Arguments, defaults and printed lines are the reference's, with one more
 argument, `--device` (default cuda): torch needs the device named where
 JAX picks its platform itself. A CUDA device that is not there is an
 error; the commands never fall back to the CPU (`--device cpu` runs the
 kernels' plain versions). `--engine` also takes the reference's names
-(pallas3 = kernel, culled = sweep). The reference's `explore` command
-(viz/explore.py) is not ported yet (ROADMAP M12).
+(pallas3 = kernel, culled = sweep; mxu is mxu).
 
 Examples:
   python -m radarays_ros_tpu_torch.io.cli simulate --mesh scene.ply \\
@@ -33,6 +35,8 @@ Examples:
       --frames 10 --out out/
   python -m radarays_ros_tpu_torch.io.cli rays --mesh scene.ply --yaw 0.3 \\
       --bounces 4 --out rays.json --device cpu
+  python -m radarays_ros_tpu_torch.io.cli explore --panel fresnel \\
+      --v1 0.3 --v2 0.15 --json fresnel.json --device cpu
 """
 
 from __future__ import annotations
@@ -395,10 +399,65 @@ def cmd_eval(args) -> int:
 
 
 def cmd_explore(args) -> int:
-    raise CliError("explore is not ported yet: the reference's explorer "
-                   "panels (viz/explore.py, brdf.py, beams.py, "
-                   "reflections.py) wait for ROADMAP M12; run them with "
-                   "`python -m radarays_ros_tpu.io.cli explore`")
+    """The reference's 2-D physics explorers (scripts/reflections/,
+    radaray_beams.py, radarays_snell_fresnel_brdf.py) as one tool: a
+    panel's data as JSON and, with --plot, a figure (matplotlib, imported
+    only then); --interactive opens live sliders. The data runs the port's
+    wave physics on --device."""
+    from radarays_ros_tpu_torch.viz import explore
+
+    if args.interactive and args.panel not in explore._INTERACTIVE:
+        print(f"panel {args.panel!r} has no interactive mode "
+              f"(available: {sorted(explore._INTERACTIVE)})",
+              file=sys.stderr)
+        return 2
+    dev = _device(args)
+    if args.interactive:
+        fn = explore._INTERACTIVE[args.panel]
+        if args.panel == "brdf":
+            fn(args.ambient, args.diffuse, args.specular, device=dev)
+        elif args.panel == "fresnel":
+            fn(args.v1, args.v2, args.polarization, device=dev)
+        else:
+            fn(args.beam_width, args.n_samples, args.p_in_cone, args.seed,
+               device=dev)
+        import matplotlib.pyplot as plt
+        plt.show()
+        return 0
+
+    plot = bool(args.plot)
+    if args.panel == "brdf":
+        data, fig = explore.panel_brdf(args.ambient, args.diffuse,
+                                       args.specular, plot=plot, device=dev)
+    elif args.panel == "fresnel":
+        data, fig = explore.panel_fresnel(args.v1, args.v2,
+                                          args.polarization, plot=plot,
+                                          device=dev)
+    elif args.panel == "slab":
+        depths = [float(x) for x in args.depths.split(",")]
+        vels = [float(x) for x in args.velocities.split(",")]
+        direction = tuple(float(x) for x in args.direction.split(","))
+        origin = tuple(float(x) for x in args.origin.split(","))
+        data, fig = explore.panel_slab(
+            depths, vels, origin=origin, direction=direction,
+            n_bounces=args.bounces, polarization=args.polarization,
+            plot=plot, device=dev)
+    else:  # beams
+        data, fig = explore.panel_beams(args.beam_width, args.n_samples,
+                                        args.p_in_cone, args.seed, plot=plot,
+                                        device=dev)
+    if args.json:
+        Path(args.json).write_text(json.dumps(data))
+        print(f"wrote {args.json}")
+    if plot:
+        if fig is None:
+            print("matplotlib unavailable; --plot skipped", file=sys.stderr)
+            return 1
+        fig.savefig(args.plot)
+        print(f"wrote {args.plot}")
+    if not args.json and not plot:
+        print(json.dumps(data))
+    return 0
 
 
 def cmd_render(args) -> int:
@@ -501,8 +560,8 @@ def cmd_prime_cache(args) -> int:
 
 _ENGINES = ["auto", "brute", "sweep", "kernel", "mxu", "culled", "pallas3"]
 _ENGINE_HELP = ("trace engine override: auto (kernel on CUDA, sweep on CPU),"
-                " brute, sweep, kernel; the reference's culled = sweep and "
-                "pallas3 = kernel; mxu is not ported")
+                " brute, sweep, kernel, mxu; the reference's culled = sweep "
+                "and pallas3 = kernel")
 
 
 def _device_arg(p: argparse.ArgumentParser):
@@ -620,9 +679,37 @@ def build_parser() -> argparse.ArgumentParser:
     ev.set_defaults(fn=cmd_eval)
 
     ex = sub.add_parser(
-        "explore", help="not ported yet: the reference's 2-D physics "
-                        "explorer panels (viz/explore.py) wait for ROADMAP "
-                        "M12")
+        "explore", help="2-D physics explorer panels (the reference's "
+                        "scripts/reflections + beams + BRDF tools)")
+    ex.add_argument("--panel", required=True,
+                    choices=["brdf", "fresnel", "slab", "beams"])
+    ex.add_argument("--json", help="write the panel data as JSON here")
+    ex.add_argument("--plot", help="write a rendered figure (PNG) here")
+    ex.add_argument("--interactive", action="store_true",
+                    help="open a live slider explorer (brdf/fresnel/beams; "
+                         "needs a GUI matplotlib backend)")
+    # brdf: the back-reflection polynomial's material triple
+    ex.add_argument("--ambient", type=float, default=1.0)
+    ex.add_argument("--diffuse", type=float, default=0.2)
+    ex.add_argument("--specular", type=float, default=30.0)
+    # fresnel: wave velocity pair + polarization
+    ex.add_argument("--v1", type=float, default=0.3)
+    ex.add_argument("--v2", type=float, default=0.15)
+    ex.add_argument("--polarization", type=float, default=0.5)
+    # slab: media stack + start ray
+    ex.add_argument("--depths", default="0.0,-0.2",
+                    help="comma list of interface depths (decreasing)")
+    ex.add_argument("--velocities", default="0.3,0.15,0.3",
+                    help="comma list of len(depths)+1 media velocities")
+    ex.add_argument("--origin", default="0.0,1.0")
+    ex.add_argument("--direction", default="0.6,-0.8")
+    ex.add_argument("--bounces", type=int, default=4)
+    # beams: cone sampling
+    ex.add_argument("--beam-width", type=float, default=8.0)
+    ex.add_argument("--n-samples", type=int, default=2000)
+    ex.add_argument("--p-in-cone", type=float, default=0.8)
+    ex.add_argument("--seed", type=int, default=0)
+    _device_arg(ex)
     ex.set_defaults(fn=cmd_explore)
 
     rd = sub.add_parser(

@@ -99,13 +99,16 @@ class RadarModelConfig:
     The port reads the model/simulation/denoise/noise fields, n_angles,
     material_id_air, wave_energy_threshold, skip_dist, reflection_model,
     opaque_materials, trace_engine ("auto" | "brute" | "sweep" |
-    "kernel"; from_dict maps the reference's names, `port_engine`),
-    draw_method ("auto" | "plain"; from_dict maps the reference's
-    "scatter", "sort" and "pallas" to "auto", `port_draw_method`),
-    trace_ray_block, trace_prep_group and trace_aux_baked. The other
-    engine knobs (trace_tri_chunk, trace_k_chunks, trace_scene_axis,
-    trace_two_phase_cap, trace_argmin_mode, trace_term_stride) belong to
-    reference engines the port does not have and are ignored.
+    "kernel" | "mxu"; from_dict maps the reference's names,
+    `port_engine`), draw_method ("auto" | "plain"; from_dict maps the
+    reference's "scatter", "sort" and "pallas" to "auto",
+    `port_draw_method`), trace_ray_block, trace_prep_group,
+    trace_aux_baked, trace_two_phase_cap (the sweep engines), trace_k_chunks
+    (the "sweep" engine, as the reference's culled) and trace_tri_chunk
+    ("mxu"). Read and ignored: trace_argmin_mode and trace_term_stride
+    (pallas3 variants that are exact with bit-identical results, measured
+    dead ends not ported, ROADMAP.md M8) and trace_scene_axis (the scene-
+    sharded layouts, ROADMAP.md M10).
     """
 
     z_offset: float = 0.0
@@ -207,13 +210,9 @@ _ENGINE_ALIASES = {"pallas3": "kernel", "culled": "sweep"}
 def port_engine(name: str) -> str:
     """A trace_engine name of either package -> the port's engine: the
     reference's "pallas3" (the Pallas kernels) is "kernel" here and its
-    "culled" (the plain chunk sweep) is "sweep", so presets and commands
-    written for the JAX package run unchanged."""
-    if name == "mxu":
-        raise ValueError(
-            "trace engine 'mxu' (the reference's dense matrix-unit engine) "
-            "belongs to ROADMAP M8 and is not ported yet; use 'kernel', "
-            "'sweep' or 'brute'")
+    "culled" (the plain chunk sweep) is "sweep"; "mxu", "brute" and "auto"
+    keep their names. Presets and commands written for the JAX package run
+    unchanged."""
     return _ENGINE_ALIASES.get(name, name)
 
 

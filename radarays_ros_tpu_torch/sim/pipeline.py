@@ -78,11 +78,20 @@ def _trace_ray_major(cfg, scene, waves: Waves, budget):
         return x.movedim(0, 2)
 
     engine = resolve_engine(cfg.trace_engine, waves.orig.device)
-    kw = {} if engine == "brute" else dict(ray_block=cfg.trace_ray_block,
-                                           prep_group=cfg.trace_prep_group)
+    kw = {}
+    if engine in ("sweep", "kernel"):
+        # the reference passes the requeue cap to pallas3 and the sweep cap
+        # only to culled (its sim/pipeline.py:136-146)
+        kw = dict(ray_block=cfg.trace_ray_block,
+                  prep_group=cfg.trace_prep_group,
+                  two_phase_cap=cfg.trace_two_phase_cap,
+                  with_aux=cfg.trace_aux_baked)
+        if engine == "sweep":
+            kw["k_chunks"] = cfg.trace_k_chunks
+    elif engine == "mxu":
+        kw = dict(ray_block=cfg.trace_ray_block, tri_chunk=cfg.trace_tri_chunk)
     res = trace(scene, rm(waves.orig), rm(waves.dir), engine=engine,
-                t_budget=rm(budget), with_aux=cfg.trace_aux_baked,
-                t_min=0.0, t_max=1000.0, **kw)
+                t_budget=rm(budget), t_min=0.0, t_max=1000.0, **kw)
     return type(res)(*(None if x is None else x.movedim(2, 0) for x in res))
 
 
@@ -122,7 +131,9 @@ def _bounce(cfg: RadarModelConfig, params: RadarParams, scene: SceneTensors,
 
     # material flip: air -> hit object's material, material -> air
     in_air = waves.material_id == cfg.material_id_air
-    if cfg.trace_aux_baked:
+    if res.aux is not None:
+        # the baked material of the hit; engines without the fetch (brute,
+        # mxu) return no aux, and the map is gathered by object instead
         hit_mat = res.aux.to(torch.int32)
     else:
         om = params.object_materials

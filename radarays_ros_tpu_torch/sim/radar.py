@@ -28,7 +28,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from radarays_ros_tpu_torch.geom.scene import Scene, bake_tri_aux
+from radarays_ros_tpu_torch.geom.scene import Scene, bake_tri_aux, with_planes
 from radarays_ros_tpu_torch.sim.config import (Materials, RadarModelConfig,
                                                RadarParams, default_params)
 from radarays_ros_tpu_torch.sim.pipeline import FrameResult, simulate_frame
@@ -65,6 +65,7 @@ class Radar:
         self._pose_history: list[tuple[float, np.ndarray]] = []
         self._auto_opaque()
         self._bake_aux()
+        self._engine_tables()
 
     # ------------------------------------------------------------ config
 
@@ -76,6 +77,7 @@ class Radar:
         if resample_keys & set(kwargs):
             self.resample()
         self.cfg = self.cfg.replace(**kwargs)
+        self._engine_tables()
 
     def update_params(self, params: RadarParams,
                       resample: bool = False) -> None:
@@ -108,6 +110,12 @@ class Radar:
         self._scene_tensors = bake_tri_aux(st, row)
         if not self.cfg.trace_aux_baked:
             self.cfg = self.cfg.replace(trace_aux_baked=True)
+
+    def _engine_tables(self) -> None:
+        """The "mxu" engine's plane tables, made on the device once its
+        engine is asked for (other engines do not need them)."""
+        if self.cfg.trace_engine == "mxu":
+            self._scene_tensors = with_planes(self._scene_tensors)
 
     def _auto_opaque(self) -> None:
         """Set opaque_materials when it is provably exact: every non-air

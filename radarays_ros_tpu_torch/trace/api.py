@@ -12,6 +12,9 @@ Engines:
                (the plain versions of the kernels in trace/cuda_trace.py);
   * "kernel" — the same algorithm through the kernel wrappers: the CUDA
                kernels on CUDA tensors, their plain versions on CPU tensors;
+  * "mxu"    — every ray against every triangle as dense f32 matmuls in
+               plane form (trace/planes.py): no culling, the baseline for
+               tiny scenes;
   * "auto"   — "kernel" for CUDA tensors, "sweep" for CPU tensors.
 """
 
@@ -23,7 +26,7 @@ import torch
 
 from radarays_ros_tpu_torch.geom.scene import INVALID_OBJ_ID
 
-ENGINES = ("auto", "brute", "sweep", "kernel")
+ENGINES = ("auto", "brute", "sweep", "kernel", "mxu")
 
 
 class TraceResult(NamedTuple):
@@ -54,8 +57,9 @@ def trace(scene, origs, dirs, engine: str = "auto", t_budget=None,
     origs[..., 0]. A hit beyond a ray's budget is a MISS for every engine
     alike; the sweep engines also use the budget to prune chunks, which is
     exact (a within-budget hit lies in a chunk entered within budget).
-    kwargs go to the engine: t_min, t_max, and for the sweep engines
-    ray_block and prep_group.
+    kwargs go to the engine: t_min, t_max; for the sweep engines
+    ray_block, prep_group, sort_rays, two_phase_cap and k_chunks
+    (trace/cuda_trace.py:trace_sweep); for "mxu" ray_block and tri_chunk.
     """
     batch_shape = origs.shape[:-1]
     o = origs.reshape(-1, 3)
@@ -66,6 +70,9 @@ def trace(scene, origs, dirs, engine: str = "auto", t_budget=None,
     if engine == "brute":
         from radarays_ros_tpu_torch.trace.intersect import trace_brute
         res = trace_brute(scene, o, d, **kwargs)
+    elif engine == "mxu":
+        from radarays_ros_tpu_torch.trace.planes import trace_planes
+        res = trace_planes(scene, o, d, **kwargs)
     else:
         from radarays_ros_tpu_torch.trace.cuda_trace import trace_sweep
         res = trace_sweep(scene, o, d, t_budget=b, with_aux=with_aux,

@@ -24,6 +24,15 @@ rays and budgets; d(t)/d(origin, direction) flows only through the
 Moller-Trumbore refinement of step 4 (the reference's stop_gradient at
 pallas_trace.py:1131-1142, 1187-1189).
 
+Around the blocks (trace_sweep, the reference's trace_pallas_v3 options,
+pallas_trace.py:1144-1189): `sort_rays` orders the rays by a spatial key
+before blocking, so that incoherent ray sets form coherent blocks;
+`two_phase_cap` traces every ray with its budget capped first and traces
+again, compacted to the front and at full budget, the lanes the cap left
+unresolved; `k_chunks` caps each block's sweep (the reference's culled
+engine's cap, no longer exact). The sorts are stable torch.sort, the
+permutations index_select gathers; no host sync learns a count.
+
 Every kernel wrapper runs the plain version for CPU tensors and launches
 the kernel for CUDA tensors (or raises); it counts its launches in
 `<wrapper>.launches`. The plain versions compute the same function in the
@@ -33,9 +42,12 @@ card the two agree bit for bit.
 
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import torch
 
+from radarays_ros_tpu_torch.geom.scene import cross3 as _cross
 from radarays_ros_tpu_torch.trace.planes import _DIR_EPS, _finalize_packed
 
 _INSIDE_EPS = float(np.float32(1e-5))   # meters; edge planes are unit-length
@@ -276,13 +288,6 @@ def _run_prep(lo, hi, o, idv, bud, *, t_max: float, RB: int, kernels: bool):
 
 # ------------------------------------------------------------ K1: sweep
 
-def _cross(o, d):
-    """o x d, each product and difference rounded separately (as sweep.cu)."""
-    return torch.stack([o[..., 1] * d[..., 2] - o[..., 2] * d[..., 1],
-                        o[..., 2] * d[..., 0] - o[..., 0] * d[..., 2],
-                        o[..., 0] * d[..., 1] - o[..., 1] * d[..., 0]], -1)
-
-
 def _chunk_t(o, d, w, cf, t_min: float):
     """Masked plane-form distances of rays (..., RB, 1, 3) against
     triangles cf (..., 1, tc, 22): (..., RB, tc), inf where no hit."""
@@ -317,6 +322,8 @@ def _sweep_plain(nvisit, order, entry, o, d, t_last, coef, fetch, *,
     of t_last, and stops once the next entry exceeds max over its lanes of
     min(best_t, t_last) — the reference's per-lane exactness argument
     (pallas_trace.py:112-120) at the kernel's warp granularity.
+
+    o x d (`_cross`) is rounded per product and difference, as sweep.cu.
 
     nvisit (B,) i32; order/entry (B, ce) ranked supergroups and entries
     (+inf after the last); o, d (B*RB, 3); t_last (B*RB,). Returns best_t
@@ -453,16 +460,21 @@ def _prep_inputs(scene, origs, dirs, budget, *, ray_block: int, group: int):
 
 
 def sweep_winners(scene, origs, dirs, budget, *, t_min: float, t_max: float,
-                  ray_block: int, group: int, kernels: bool):
+                  ray_block: int, group: int, kernels: bool,
+                  k_chunks: int = 0):
     """Nearest plane-form hit per ray: (best_t (R,) masked to <= t_max,
     best_idx (R,), rows (R, 16)) — the reference's _trace_pallas_v3_impl
-    glue (pallas_trace.py:798-927) around the prep and the sweep."""
+    glue (pallas_trace.py:798-927) around the prep and the sweep. With
+    k_chunks > 0 each block's ranked list is cut after its first k_chunks
+    entries (K1 visits at most nvisit)."""
     R = origs.shape[0]
     o, d, inv_d, bud, lo, hi, C2 = _prep_inputs(
         scene, origs, dirs, budget, ray_block=ray_block, group=group)
     entry, t_last = _run_prep(lo, hi, o, inv_d, bud, t_max=t_max,
                               RB=ray_block, kernels=kernels)
     nvisit, order, entry_ranked = _rank(entry[:, :C2])
+    if k_chunks:
+        nvisit = torch.clamp_max(nvisit, k_chunks)
     run = sweep if kernels else _sweep_plain
     best_t, best_i, rows = run(
         nvisit, order, entry_ranked, o, d, t_last, scene.coef, scene.fetch,
@@ -473,19 +485,103 @@ def sweep_winners(scene, origs, dirs, budget, *, t_min: float, t_max: float,
     return torch.where(bt <= t_max, bt, torch.inf), best_i[:R], rows[:R]
 
 
+def _ray_sort_key(origs, dirs):
+    """Spatial sort key of rays (the reference's _ray_sort_key,
+    pallas_trace.py:952-971), int32 and bit-equal to it: a Morton code of
+    6 bits an axis over the origins' bounding box, in the reference's f32
+    order ((o - lo) / ext * 63, clipped, truncated), then the direction
+    octant as the low 3 bits. Rays that start near each other come
+    together whatever their direction."""
+    lo = origs.amin(dim=0)
+    ext = torch.clamp_min(origs.amax(dim=0) - lo, 1e-6)
+    q = torch.clamp((origs - lo) / ext * 63.0, 0.0, 63.0).to(torch.int32)
+    code = torch.zeros(origs.shape[0], dtype=torch.int32, device=origs.device)
+    for b in range(6):
+        for ax in range(3):
+            code = code | (((q[:, ax] >> b) & 1) << (3 * b + ax))
+    pos = (dirs > 0).to(torch.int32)
+    octant = pos[:, 0] * 4 + pos[:, 1] * 2 + pos[:, 2]
+    return (code << 3) | octant
+
+
+def _permuted(run, key, o, d, bud):
+    """run(o, d, bud) -> (best_t, rows) on the rays in the order of a
+    stable sort by key, returned in the rays' own order (a stable sort
+    keeps the order within each key, so the blocks hold the reference's
+    rays)."""
+    perm = torch.sort(key, stable=True).indices
+    t_s, rows_s = run(o.index_select(0, perm), d.index_select(0, perm),
+                      bud.index_select(0, perm))
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.shape[0], device=perm.device)
+    return t_s.index_select(0, inv), rows_s.index_select(0, inv)
+
+
+def _two_phase(run, cap: float, o, d, bud):
+    """The reference's two-phase requeue (pallas_trace.py:1160-1179),
+    exact: phase 1 traces with budgets capped at `cap`; a lane is resolved
+    when its winner lies within its capped budget (a nearer triangle would
+    lie in a chunk entered within it); the others with a budget beyond the
+    cap are traced again at full budget, compacted to the front by a stable
+    sort, while the rest get budget 0 (their blocks visit nothing)."""
+    b1 = torch.clamp_max(bud, cap)
+    t1, rows1 = run(o, d, b1)
+    resolved = torch.isfinite(t1) & (t1 <= b1)
+    live = ~resolved & (bud > cap)
+    t2, rows2 = _permuted(run, resolved.to(torch.int32), o, d,
+                          torch.where(live, bud, 0.0))
+    return (torch.where(resolved, t1, t2),
+            torch.where(resolved[:, None], rows1, rows2))
+
+
 def trace_sweep(scene, origs, dirs, t_min: float = 0.0, t_max: float = 1000.0,
                 ray_block: int = 2048, t_budget=None, prep_group: int = 0,
-                with_aux: bool = False, kernels: bool = True):
+                with_aux: bool = False, kernels: bool = True,
+                sort_rays: bool = False, two_phase_cap=None, k_chunks=None):
     """Ranked chunk sweep trace of (R, 3) rays (engines "sweep" with
-    kernels=False, "kernel" with kernels=True; trace/api.py)."""
+    kernels=False, "kernel" with kernels=True; trace/api.py).
+
+    sort_rays: trace the rays in the order of _ray_sort_key and restore
+    theirs after; for incoherent ray sets (radar fans are coherent as they
+    are). Distances and hits are unchanged; obj_id may differ on exact-
+    distance ties, whose winner is the first in visit order.
+    two_phase_cap: the two-phase requeue at this cap [m] (_two_phase).
+    k_chunks: the reference culled engine's cap — at most k_chunks ranked
+    entries a block (None or 0: no cap). Below the block's entry count it
+    is no longer exact and warns, as the reference does."""
     if ray_block % 128:
         raise ValueError(f"ray_block must be a multiple of 128, got "
                          f"{ray_block}")
     group = prep_group or _auto_prep_group(scene.n_chunks)
+    C2 = scene.n_chunks // group
+    K = min(k_chunks or C2, C2)
+    if K < C2:
+        warnings.warn(
+            f"trace_sweep: k_chunks={K} caps each block's sweep below the "
+            f"scene's {C2} ranked entries — the trace is NO LONGER "
+            "GUARANTEED EXACT (a hit is missed whenever more than k_chunks "
+            "entries rank closer than it). This opts out of the engines-"
+            "match-brute contract; use k_chunks=None unless bounding the "
+            "worst-case sweep is worth approximate results.", stacklevel=3)
+    o = origs.detach().to(torch.float32)
+    d = dirs.detach().to(torch.float32)
     budget = (torch.full(origs.shape[:1], t_max, device=origs.device)
               if t_budget is None else t_budget.detach().to(torch.float32))
-    best_t, _, rows = sweep_winners(
-        scene, origs.detach().to(torch.float32),
-        dirs.detach().to(torch.float32), budget, t_min=t_min, t_max=t_max,
-        ray_block=ray_block, group=group, kernels=kernels)
+
+    def run(o_r, d_r, b_r):
+        best_t, _, rows = sweep_winners(
+            scene, o_r, d_r, b_r, t_min=t_min, t_max=t_max,
+            ray_block=ray_block, group=group, kernels=kernels,
+            k_chunks=K if K < C2 else 0)
+        return best_t, rows
+
+    def phased(o_r, d_r, b_r):
+        if two_phase_cap is None:
+            return run(o_r, d_r, b_r)
+        return _two_phase(run, float(two_phase_cap), o_r, d_r, b_r)
+
+    if sort_rays:
+        best_t, rows = _permuted(phased, _ray_sort_key(o, d), o, d, budget)
+    else:
+        best_t, rows = phased(o, d, budget)
     return _finalize_packed(origs, dirs, best_t, rows, with_aux=with_aux)

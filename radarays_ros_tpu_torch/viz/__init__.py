@@ -1,7 +1,7 @@
-"""Debug visualization: ray-reflection traces (rviz markers -> data) and the
-paper-style cartesian view (counterpart of radarays_ros_tpu/viz; the
-explorer panels of viz/explore.py, brdf.py, beams.py and reflections.py
-are not ported yet, ROADMAP M12)."""
+"""Debug visualization: ray-reflection traces (rviz markers -> data), the
+paper-style cartesian view and the 2-D physics explorer panels (explore.py
+over brdf.py, reflections.py and beams.py) — counterpart of
+radarays_ros_tpu/viz."""
 
 from radarays_ros_tpu_torch.viz.rays import (  # noqa: F401
     segments_to_polylines,

@@ -93,6 +93,19 @@ def _assert_u8_contract(got, want):
     assert diff.max() <= 3
 
 
+def _segments_close(got, want):
+    """Debug-ray segments: the same in order, bounce, kind, medium and
+    material, positions and energies within 1e-4."""
+    assert got["n_rays"] == want["n_rays"]
+    assert len(got["segments"]) == len(want["segments"]) > 0
+    for a, b in zip(got["segments"], want["segments"]):
+        for k in ("bounce", "kind", "medium", "material_id"):
+            assert a[k] == b[k], (k, a, b)
+        np.testing.assert_allclose(a["start"] + a["end"] + [a["energy"]],
+                                   b["start"] + b["end"] + [b["energy"]],
+                                   rtol=0, atol=1e-4)
+
+
 def test_info_prints_the_reference_lines(files, capsys):
     argv = ["info", "--mesh", files / "scene.obj", "--chunk-size", "8"]
     rc, out = _run(pcli.main, argv, capsys)
@@ -148,6 +161,31 @@ def test_simulate_frames_meet_the_contract_against_jax_cli(files, tmp_path,
             for b in (0, 2)]
     for k, g in enumerate(got):
         np.testing.assert_array_equal(g, imgs[k // 2][k % 2])
+
+
+@pytest.mark.parametrize("engine", ["brute", "mxu"])
+def test_simulate_on_engines_without_aux(files, tmp_path, capsys, engine):
+    """simulate --engine brute|mxu: engines that return no baked material
+    (Radar bakes it for the sweep engines) render the JAX CLI's frames
+    under the u8 contract; brute used to fail at the first frame. The
+    reference is the JAX CLI on its culled engine: the reference's brute
+    misses the rays aimed exactly at the room's corners (its Moller-
+    Trumbore test is strict on the edge two walls share), where its plane
+    engines, and every engine of the port, hit."""
+    common = ["simulate", "--mesh", files / "scene.obj", "--chunk-size", 8,
+              "--preset", files / "preset.yaml", "--scene-config",
+              files / "refr.yaml", "--frames", 2, "--format", "npy"]
+    rc, _ = _run(pcli.main, common + ["--engine", engine, "--out",
+                                      tmp_path / "p", "--device", "cpu"],
+                 capsys)
+    assert rc == 0
+    jrc, _ = _run(jcli.main, common + ["--engine", "culled", "--out",
+                                       tmp_path / "j"], capsys)
+    assert jrc == 0
+    got, want = _frames(tmp_path / "p"), _frames(tmp_path / "j")
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        _assert_u8_contract(g, w)
 
 
 def test_optimize_initial_psnr_matches_jax_cli(files, tmp_path, capsys):
@@ -268,7 +306,8 @@ def test_render_output_is_byte_identical(tmp_path, capsys):
 def test_argument_errors(files, tmp_path, capsys, monkeypatch):
     """--synced without --traj returns 2 before any scene is loaded; a CUDA
     device that is not there is an error, never a CPU fallback; the
-    reference's mxu engine and the explore command are refused."""
+    reference's mxu engine gives the sweep's rays and its explore command
+    the reference's data (both refused before they were ported)."""
     from radarays_ros_tpu_torch.geom import mesh as pmesh
 
     def no_load(*a, **k):
@@ -286,11 +325,28 @@ def test_argument_errors(files, tmp_path, capsys, monkeypatch):
         assert pcli.main([str(a) for a in argv]) == 2
         assert "no CUDA device" in capsys.readouterr().err
     monkeypatch.undo()
-    rc = pcli.main(["rays", "--mesh", str(files / "scene.obj"), "--engine",
-                    "mxu", "--device", "cpu"])
-    assert rc == 2 and "M8" in capsys.readouterr().err
-    assert pcli.main(["explore"]) == 2
-    assert "M12" in capsys.readouterr().err
+    rays = {}
+    for engine in ("mxu", "sweep"):
+        rc, out = _run(pcli.main, [
+            "rays", "--mesh", files / "scene.obj", "--chunk-size", 8,
+            "--scene-config", files / "refr.yaml", "--bounces", 3,
+            "--all-directions", "--n-fan", 24, "--engine", engine, "--compact", "--device",
+            "cpu"], capsys)
+        assert rc == 0
+        rays[engine] = json.loads(out)
+    _segments_close(rays["mxu"], rays["sweep"])
+    with pytest.raises(SystemExit):             # --panel is required
+        pcli.main(["explore"])
+    capsys.readouterr()
+    rc, out = _run(pcli.main, ["explore", "--panel", "fresnel", "--json",
+                               tmp_path / "p.json", "--device", "cpu"],
+                   capsys)
+    assert rc == 0
+    assert jcli.main(["explore", "--panel", "fresnel", "--json",
+                      str(tmp_path / "j.json")]) == 0
+    np.testing.assert_allclose(
+        *(np.asarray(json.loads((tmp_path / f).read_text())["reflectance"])
+          for f in ("p.json", "j.json")), rtol=1e-6, atol=1e-6)
     rc = pcli.main(["eval", "--real", str(tmp_path)])
     assert rc == 2
 

@@ -467,3 +467,84 @@ def test_debug_rays_through_kernels_equal_sweep(scene, dev, mode):
     want = trace_debug_rays(scene, params, RadarModelConfig(
         trace_engine="sweep"), pose, **kw)
     assert got == want and len(got["segments"]) > 0
+
+
+def _incoherent(n, dev, seed=0):
+    """Random origins over the town and random directions: every 5th ray
+    steep to the sky (a miss), budgets 0 (dead lanes, and one whole dead
+    32-lane group), 8, 60 or 1000."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform((-90, -90, 0.5), (90, 90, 25), (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3))
+    d[::5, 2] = np.abs(d[::5, 2]) + 2.0
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    bud = rng.choice([0.0, 8.0, 60.0, 1000.0], n).astype(np.float32)
+    bud[64:96] = 0.0
+    return tuple(torch.from_numpy(a).to(dev) for a in (o, d, bud))
+
+
+@pytest.mark.parametrize("extra", [dict(sort_rays=True),
+                                   dict(two_phase_cap=20.0),
+                                   dict(sort_rays=True, two_phase_cap=20.0)])
+def test_sort_and_two_phase_on_kernel_equal_sweep(scene, dev, extra):
+    """sort_rays and the two-phase requeue through the kernels on a 4k-ray
+    incoherent set with dead and sky lanes: equal to the plain sweep with
+    the same options, K1-K3 launched once per phase; the requeue leaves
+    the single-phase result unchanged, the sort up to exact-distance
+    ties."""
+    o, d, bud = _incoherent(4096 + 37, dev)
+    kw = dict(t_budget=bud, ray_block=2048, **extra)
+    n0 = {k: getattr(CT, k).launches for k in ("sweep", "prep_hier",
+                                                "coarse_words")}
+    got = trace(scene, o, d, engine="kernel", **kw)
+    torch.cuda.synchronize()
+    phases = 2 if "two_phase_cap" in extra else 1
+    assert all(getattr(CT, k).launches == n0[k] + phases for k in n0)
+    want = trace(scene, o, d, engine="sweep", **kw)
+    for a, b in zip(got, want):
+        assert b is None if a is None else torch.equal(a, b)
+    hit = got.hit
+    assert 0.2 < float(hit.float().mean()) < 0.9 and not hit[64:96].any()
+    single = trace(scene, o, d, engine="kernel", t_budget=bud,
+                   ray_block=2048)
+    assert torch.equal(single.hit, hit)
+    torch.testing.assert_close(got.t[hit], single.t[hit], rtol=1e-5, atol=0)
+    if "sort_rays" not in extra:
+        assert torch.equal(got.obj_id, single.obj_id)
+    else:
+        assert float((got.obj_id != single.obj_id).float().mean()) < 0.02
+
+
+def test_mxu_on_card_matches_brute(scene, dev):
+    """The dense engine on the card, with TF32 off as the engine asserts
+    (and refuses to run with it on): the brute oracle's hits, objects,
+    distances and normals on a fan; on the incoherent set (origins inside
+    buildings see floors that tie with the ground) its hits and
+    distances, objects apart only on exact-distance ties."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
+    from radarays_ros_tpu_torch.geom.scene import with_planes
+
+    st = with_planes(scene)
+    for rays in ("fan", "incoherent"):
+        o, d = (_fan(4096, dev) if rays == "fan"
+                else _incoherent(4096, dev, seed=1))[:2]
+        got = trace(st, o, d, engine="mxu", ray_block=2048, tri_chunk=1000)
+        want = trace(st, o, d, engine="brute")
+        hit = want.hit
+        assert torch.equal(got.hit, hit) and hit.any()
+        torch.testing.assert_close(got.t[hit], want.t[hit], rtol=1e-4,
+                                   atol=1e-4)
+        obj = got.obj_id != want.obj_id
+        if rays == "fan":
+            assert not obj.any()
+            torch.testing.assert_close(got.normal, want.normal, rtol=0,
+                                       atol=1e-4)
+        else:
+            assert float(obj.float().mean()) < 0.02
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="TF32"):
+            trace(st, o, d, engine="mxu")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False

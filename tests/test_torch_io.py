@@ -187,16 +187,22 @@ def test_from_dict_over_every_field():
 @pytest.mark.parametrize("ref,port", [("pallas3", "kernel"),
                                       ("culled", "sweep"), ("auto", "auto"),
                                       ("brute", "brute"), ("kernel", "kernel"),
-                                      ("sweep", "sweep")])
+                                      ("sweep", "sweep"), ("mxu", "mxu")])
 def test_reference_engine_names_map_to_the_port(ref, port):
     assert port_engine(ref) == port
     assert RadarModelConfig.from_dict({"trace_engine": ref}).trace_engine \
         == port
 
 
-def test_mxu_engine_is_refused():
-    with pytest.raises(ValueError, match="M8"):
-        RadarModelConfig.from_dict({"trace_engine": "mxu"})
+def test_mxu_engine_loads(tmp_path):
+    """A reference preset on the dense engine, with its triangle chunk and
+    the requeue cap, loads into the port as it is."""
+    path = tmp_path / "preset.yaml"
+    jcfgio.save_preset(path, JCFG.RadarModelConfig(
+        trace_engine="mxu", trace_tri_chunk=1024, trace_two_phase_cap=40.0))
+    cfg, _, _ = pcfgio.load_preset(path)
+    assert (cfg.trace_engine, cfg.trace_tri_chunk,
+            cfg.trace_two_phase_cap) == ("mxu", 1024, 40.0)
 
 
 def test_unknown_draw_method_is_refused_at_load(tmp_path):

@@ -13,20 +13,9 @@ import torch
 
 from radarays_ros_tpu.sim.config import RadarModelConfig as JxConfig
 
-from test_torch_cli import files  # noqa: F401  (the CLI tests' fixture)
+from test_torch_cli import _segments_close, files  # noqa: F401
 
 torch.set_num_threads(2)
-
-
-def _segments_close(got, want):
-    assert got["n_rays"] == want["n_rays"]
-    assert len(got["segments"]) == len(want["segments"]) > 0
-    for a, b in zip(got["segments"], want["segments"]):
-        for k in ("bounce", "kind", "medium", "material_id"):
-            assert a[k] == b[k], (k, a, b)
-        np.testing.assert_allclose(a["start"] + a["end"] + [a["energy"]],
-                                   b["start"] + b["end"] + [b["energy"]],
-                                   rtol=0, atol=1e-4)
 
 
 @pytest.mark.parametrize("mode", ["single", "fan"])
