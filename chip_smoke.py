@@ -98,7 +98,30 @@ Phases (one line of figures each; any failure raises and exits non-zero):
      positive control, made inside a range of that name), every
      kernel's time at the shapes and on the inputs of phases 3, 5, 6,
      7 and 9a, and a check that each K4 call is its one kernel (no fill,
-     memset or copy in its profiled window).
+     memset or copy in its profiled window);
+ 11. the multi-device layouts (radarays_ros_tpu_torch.parallel) in 4 gloo
+     ranks sharing the one card (parallel/launch.py:run_ranks; the ranks
+     load phase 5's host build from a scene cache this process writes, and
+     take the cone draws and Perlin offsets made here): a. azimuth x 4,
+     c. azimuth x sample 2 x 2 (SUM), and once with signal_denoising=0
+     and scroll_image=3 (MAX), b. scene x 4 (976 chunks a shard), d.
+     azimuth x scene 2 x 2 — each frame under the frame contract of this
+     process's simulate_frame on the same inputs (and whether bitwise),
+     ms a frame (CUDA events in rank 0 after a barrier), each rank's peak
+     and resident scene MiB, the launch counts of every rank (K1, K2, K3,
+     K5 > 0), K1-K3 on each rank's bounce-1 rays and K5 on its signals
+     bitwise against their plain versions, ms a combine in b and d (and
+     of the same combine on host tensors), in a the frame apart (the
+     wedge's render alone, the assembly's all-reduce alone on card and
+     on host tensors); in b
+     the combined traces of phase 4's fan and of bounce 1 against the
+     unsharded kernel trace (hit equal, t bitwise off exact-distance ties,
+     ties counted); e. train_step_sharded over 4 on phase 7's fit setup:
+     the loss within 1e-6 relative and the gradient within 1e-5 x max|g|
+     of this process's loss of the same global objective, parameters
+     finite and moved, K1, K4, K5 and its backward launched in every rank
+     and bitwise on its inputs; then the dry run on one NCCL rank. The
+     ranks' times are those of 4 processes sharing one card, not scaling.
 A kernel's time (ms) is its mean device time per launch from
 torch.profiler's CUDA activity over a loop of wrapper calls (K3's and K4's
 with the window's other device work: K3's memset that zeroes its words, an
@@ -729,6 +752,11 @@ def batch_waves(params, cfg, poses, gen, dev):
             local)
 
 
+def ray_major(x):
+    """An (N, A, S, ...) wave field in the trace's ray-major order, flat."""
+    return x.movedim(0, 2).reshape(-1, *x.shape[3:]).contiguous()
+
+
 def bounce_rays(st, params, cfg, waves, sensor_pos):
     """The batch's bounces one by one through the pipeline's _bounce:
     yields (pass_id, waves, o, d, budget), the rays and budgets in its
@@ -737,12 +765,9 @@ def bounce_rays(st, params, cfg, waves, sensor_pos):
 
     from radarays_ros_tpu_torch.sim import pipeline as P
 
-    def rm(x):
-        return x.movedim(0, 2).reshape(-1, *x.shape[3:]).contiguous()
-
     for pass_id in range(cfg.n_reflections):
-        yield (pass_id, waves, rm(waves.orig), rm(waves.dir),
-               rm(P.trace_budget(cfg, waves)))
+        yield (pass_id, waves, ray_major(waves.orig), ray_major(waves.dir),
+               ray_major(P.trace_budget(cfg, waves)))
         with torch.no_grad():
             waves, _ = P._bounce(cfg, params, st, waves, sensor_pos, pass_id)
 
@@ -1132,11 +1157,9 @@ def fit_phase(dev) -> dict:
     # and K4 on the first pass's rays and budgets, in ray-major order
     from radarays_ros_tpu_torch.trace import cuda_trace as CT
 
-    def rm(x):
-        return x.movedim(0, 2).reshape(-1, *x.shape[3:]).contiguous()
-
     o, _, inv_d, bud, lo, hi, _ = CT._prep_inputs(
-        st, rm(waves.orig), rm(waves.dir), rm(P.trace_budget(cfg, waves)),
+        st, ray_major(waves.orig), ray_major(waves.dir),
+        ray_major(P.trace_budget(cfg, waves)),
         ray_block=cfg.trace_ray_block, group=1)
     k4 = flat_vs_plain(lo, hi, o, inv_d, bud, cfg.trace_ray_block, 20)[0]
     info["kernels_fit_shapes"] = dict(k5, prep_flat=k4, rows=cell.shape[0],
@@ -1913,6 +1936,433 @@ def explorer_phase(dev) -> dict:
     return out
 
 
+RANKS = 4            # phase 11's ranks, all on the one card
+LAYOUT_REPS = 5      # timed frames per layout in phase 11
+COMBINE_REPS = 10    # timed combines per scene layout
+FIT_LR = 1e-3        # the training step's SGD rate (the reference default)
+# phase 11's sub-phases: (tag, layout, config overrides), the layouts that
+# hold the whole scene first, so that the scene layouts' peaks hold only
+# their shards
+SUBPHASES = (("a", "az", {}), ("c", "az_smp", {}),
+             ("c max", "az_smp", dict(signal_denoising=0, scroll_image=3)),
+             ("b", "scene", {}), ("d", "az_scene", {}))
+SUBPHASE_NAMES = {"a": "azimuth x 4", "b": "scene x 4",
+                  "c": "azimuth x sample 2 x 2",
+                  "c max": "azimuth x sample 2 x 2, MAX, scroll 3",
+                  "d": "azimuth x scene 2 x 2"}
+SHARING = "4 ranks sharing one card, not scaling"
+
+
+def scene_mib(st) -> float:
+    """Device MiB of a SceneTensors' tensors."""
+    import torch
+
+    return sum(t.numel() * t.element_size() for t in st
+               if isinstance(t, torch.Tensor)) / 2**20
+
+
+def k5_bitwise(cell, s, cfg) -> bool:
+    """K5 on a wedge's signals (bin_inputs: invalid ones at cell n_cells)
+    against its plain version, bit for bit, in the config's combine."""
+    import torch
+
+    from radarays_ros_tpu_torch.image.cuda_draw import _bin_plain, bin_signals
+
+    w, mode = cfg.denoiser()
+    if w is None:
+        s = torch.where(cell < cfg.n_cells, s, -torch.inf).contiguous()
+        kw = dict(n_cells=cfg.n_cells, combine="max")
+    else:
+        kw = dict(n_cells=cfg.n_cells, combine="sum",
+                  weights=tuple(float(x) for x in w), w_mode=mode)
+    got, want = bin_signals(cell, s, **kw), _bin_plain(cell, s, **kw)
+    bits = torch.equal(got.view(torch.int32), want.view(torch.int32))
+    check(bits, f"K5 ({kw['combine']}) on a rank's signals: not bitwise")
+    return bits
+
+
+def rank_wedge(cfg, mesh):
+    """This rank's azimuth rows and cone samples in a layout's mesh."""
+    A, S = cfg.n_angles, cfg.n_samples
+    rows, samples = slice(0, A), slice(0, S)
+    if "az" in mesh.shape:
+        n, i = mesh.shape["az"], mesh.coords["az"]
+        rows = slice(i * A // n, (i + 1) * A // n)
+    if "smp" in mesh.shape:
+        n, i = mesh.shape["smp"], mesh.coords["smp"]
+        samples = slice(i * S // n, (i + 1) * S // n)
+    return rows, samples
+
+
+def ranks_ms(fn, reps: int) -> float:
+    """cuda_ms(fn, reps) with every rank starting after a barrier (fn's
+    collectives keep the ranks in step)."""
+    import torch.distributed as dist
+
+    dist.barrier()
+    return cuda_ms(fn, reps)
+
+
+def ranks_host_ms(fn, reps: int) -> float:
+    """Mean wall ms of fn() over `reps` calls after one warm-up, every rank
+    starting after a barrier; the card is synchronized at both ends (for
+    collectives of host tensors, which CUDA events do not time)."""
+    import torch
+    import torch.distributed as dist
+
+    fn()
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def layouts_rank_chip(rank: int, world: int, device, cache_dir: str,
+                      key: str, n_objects: int, cfg, pose, inputs,
+                      fit_target) -> dict:
+    """Phase 11 in one rank (a run_ranks worker): the phase-5 scene from
+    the cache the parent wrote, every layout of SUBPHASES driven with the
+    launch counts zeroed just before and read just after, timed over
+    LAYOUT_REPS frames, peak memory, and on this rank's own inputs the
+    trace kernels of bounce 1 and K5 against their plain versions; in the
+    scene layouts the combine's time, and in "b" the combined traces of the
+    gate fan and of bounce 1; then the training step on the fit's setup.
+    Returns rank 0's frames and traces and every rank's figures."""
+    import contextlib
+    from pathlib import Path
+
+    import torch
+    import torch.distributed as dist
+
+    from radarays_ros_tpu_torch.geom.cache import load_scene_host
+    from radarays_ros_tpu_torch.parallel import sharding as SH
+    from radarays_ros_tpu_torch.parallel.dryrun import LAYOUTS, baked
+    from radarays_ros_tpu_torch.parallel.groups import scene_axis
+    from radarays_ros_tpu_torch.sim import pipeline as P
+    from radarays_ros_tpu_torch.trace.api import combine_trace_shards, trace
+    from radarays_ros_tpu_torch.wave.cone import cone_local
+
+    def numpy(res):
+        return tuple(None if x is None else x.cpu().numpy() for x in res)
+
+    t0 = time.perf_counter()
+    host = load_scene_host(key, cache_dir=Path(cache_dir))
+    check(host is not None, "a rank found no host build in the cache")
+    st, params = kaist_tensors(host, n_objects, device)
+    mine = dict(rank=rank, device=str(device), load_upload_s=time.perf_counter()
+                - t0, whole_scene_mib=scene_mib(st))
+    out = {}
+    pose = torch.as_tensor(pose, device=device)
+    draws = tuple(torch.as_tensor(x, device=device)
+                  for x in inputs["cone_draws"])
+    local = cone_local(*draws, params.beam_width, cfg.beam_sample_dist,
+                       cfg.beam_sample_dist_normal_p_in_cone)
+    rb = cfg.trace_ray_block
+    for tag, layout, overrides in SUBPHASES:
+        fn, make, sharded = LAYOUTS[layout]
+        c = cfg.replace(**overrides)
+        mesh = make()
+        if sharded and st is not None:
+            del st                      # the scene layouts hold shards only
+            st = None
+            torch.cuda.empty_cache()
+        scene = (baked(SH.scene_shard(host, mesh, device), params, c)
+                 if sharded else st)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+
+        def run():
+            return fn(scene, params, c, pose, mesh, device=device, **inputs)
+
+        wrappers = zero_counts()
+        res = run()
+        torch.cuda.synchronize()
+        row = dict(launches=read_counts(wrappers),
+                   resident_scene_mib=scene_mib(scene))
+        if rank == 0:
+            out[tag] = numpy(res)
+        del res
+        row["ms_per_frame"] = ranks_ms(run, LAYOUT_REPS)
+        row["peak_mib"] = torch.cuda.max_memory_allocated(device) / 2**20
+        # this rank's inputs: its wedge's bounce-1 rays and its signals
+        rows, samples = rank_wedge(c, mesh)
+        if tag == "a":
+            # the frame apart: the wedge's render alone (no collective in
+            # this layout), and the assembly's all-reduce alone on the
+            # card's tensors (gloo stages them through the host) and on
+            # host tensors of the same shapes
+            a0, A_loc = rows.start, rows.stop - rows.start
+            rbeg = torch.as_tensor(inputs["random_begin"], device=device)
+            row["wedge_ms"] = ranks_ms(lambda: SH._wedge_frame(
+                scene, params, c, c, pose, local, a0, A_loc, 0,
+                c.n_samples, rbeg, None), LAYOUT_REPS)
+            for key, on in (("assemble_ms", device), ("assemble_host_ms",
+                                                      "cpu")):
+                wedge = (torch.zeros((A_loc, c.n_cells), dtype=torch.uint8,
+                                     device=on),
+                         torch.zeros((A_loc, c.n_cells), device=on),
+                         torch.zeros((A_loc,), device=on))
+                row[key] = ranks_host_ms(lambda: SH._assemble(
+                    c, a0, *wedge, mesh.groups["az"]), LAYOUT_REPS)
+        waves, sp = SH.wedge_waves(params, c, pose, local, rows, samples,
+                                   device)
+        o, d, bud = (ray_major(x) for x in (waves.orig, waves.dir,
+                                            P.trace_budget(c, waves)))
+        axis = "scene" if "scene" in mesh.shape else None
+        ctx = (scene_axis(axis, mesh.groups[axis]) if axis
+               else contextlib.nullcontext())
+        with ctx, torch.no_grad():
+            cell, s = bin_inputs(scene, params, c.replace(
+                trace_scene_axis=axis), waves, sp)
+        row["kernels_bitwise"] = dict(
+            {k: v["bitwise"] for k, v in kernels_vs_plain(
+                scene, o, d, bud, rb, reps=1).items()},
+            bin=k5_bitwise(cell, s, c))
+        row.update(rays_bounce1=int(o.shape[0]), k5_rows=int(cell.shape[0]))
+        if axis:
+            group = mesh.groups[axis]
+            got = trace(scene, o, d, engine="kernel", t_budget=bud,
+                        ray_block=rb, with_aux=c.trace_aux_baked)
+            row["combine_ms"] = ranks_ms(
+                lambda: combine_trace_shards(got, group), COMBINE_REPS)
+            on_host = type(got)(*(None if x is None else x.cpu()
+                                  for x in got))
+            row["combine_host_ms"] = ranks_host_ms(
+                lambda: combine_trace_shards(on_host, group), COMBINE_REPS)
+            if tag == "b":
+                if rank == 0:
+                    out["b bounce 1"] = numpy(combine_trace_shards(got,
+                                                                   group))
+                else:
+                    combine_trace_shards(got, group)
+                fo, fd = fan(GATE_RAYS, device)
+                merged = combine_trace_shards(
+                    trace(scene, fo, fd, engine="kernel"), group)
+                if rank == 0:
+                    out["b fan"] = numpy(merged)
+            del got
+        mine[tag] = row
+        del scene
+    # e: the training step on the fit's setup, over all ranks
+    st_f, _, start, cfg_f, poses_f, draws_f, _ = fit_setup(device)
+    pose_f = poses_f[0]
+    kw = dict(cone_draws=(draws_f[0][0], draws_f[1][0]), device=device)
+    mesh = SH.make_mesh()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    wrappers = zero_counts()
+    loss, new = SH.train_step_sharded(st_f, start, cfg_f, pose_f, fit_target,
+                                      mesh, lr=FIT_LR, **kw)
+    torch.cuda.synchronize()
+    row = dict(launches=read_counts(wrappers), loss=float(loss),
+               new_params=[x.cpu().tolist() for x in (*new.materials,
+                                                      new.beam_width)])
+    row["ms_per_step"] = ranks_ms(lambda: SH.train_step_sharded(
+        st_f, start, cfg_f, pose_f, fit_target, mesh, lr=FIT_LR, **kw), 3)
+    row["peak_mib"] = torch.cuda.max_memory_allocated(device) / 2**20
+    loss_g, (g_mat, g_bw) = SH.sharded_loss_and_grads(
+        st_f, start, cfg_f, pose_f, fit_target, mesh, **kw)
+    row.update(loss_of_grads=float(loss_g), grads=torch.cat(
+        [*g_mat, g_bw.reshape(1)]).cpu().tolist())
+    rows, samples = rank_wedge(cfg_f, mesh)
+    waves, sp = SH.wedge_waves(start, cfg_f, pose_f, cone_local(
+        *kw["cone_draws"], start.beam_width, cfg_f.beam_sample_dist,
+        cfg_f.beam_sample_dist_normal_p_in_cone), rows, samples, device)
+    o, d, bud = (ray_major(x) for x in (waves.orig, waves.dir,
+                                        P.trace_budget(cfg_f, waves)))
+    cell, s = bin_inputs(st_f, start, cfg_f, waves, sp)
+    w, mode = cfg_f.denoiser()
+    row["kernels_bitwise"] = dict(
+        {k: v["bitwise"] for k, v in kernels_vs_plain(
+            st_f, o, d, bud, cfg_f.trace_ray_block, reps=1).items()},
+        **{k: v["bitwise"] for k, v in bin_vs_plain(
+            cell, s, w, mode, cfg_f.n_cells, reps=1).items()})
+    mine["e"] = row
+    ranks = [None] * world
+    dist.all_gather_object(ranks, mine)
+    out["ranks"] = ranks
+    return out
+
+
+def layouts_phase(dev, host, n_objects: int, cfg, smi: str) -> dict:
+    """Phase 11: the multi-device layouts over RANKS gloo ranks on the one
+    card against this process's single-frame render on the same inputs
+    (module doc), then the dry run on one NCCL rank."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from radarays_ros_tpu_torch.geom.cache import store_scene_host
+    from radarays_ros_tpu_torch.parallel import sharding as SH
+    from radarays_ros_tpu_torch.parallel.dryrun import dryrun_multidevice
+    from radarays_ros_tpu_torch.parallel.launch import run_ranks
+    from radarays_ros_tpu_torch.sim import pipeline as P
+    from radarays_ros_tpu_torch.sim.config import Materials
+    from radarays_ros_tpu_torch.trace.api import trace
+    from radarays_ros_tpu_torch.wave.cone import cone_local, sample_cone_draws
+
+    t_phase = time.perf_counter()
+    st, params = kaist_tensors(host, n_objects, dev)
+    gen = torch.Generator(dev).manual_seed(11)
+    draws = sample_cone_draws(gen, cfg.n_samples, cfg.beam_sample_dist)
+    rbeg = torch.randint(0, 1000, (cfg.n_angles,), generator=gen, device=dev)
+    pose = batch_poses()[0]
+    inputs = dict(cone_draws=tuple(x.cpu().numpy() for x in draws),
+                  random_begin=rbeg.cpu().numpy())
+    with torch.no_grad():
+        refs = {tag: P.simulate_frame(st, params, cfg.replace(**ov), pose,
+                                      cone_draws=draws, random_begin=rbeg)
+                for tag, _, ov in SUBPHASES}
+        local = cone_local(*draws, params.beam_width, cfg.beam_sample_dist,
+                           cfg.beam_sample_dist_normal_p_in_cone)
+        waves, _ = SH.wedge_waves(params, cfg, pose, local, slice(None),
+                                  slice(None), dev)
+        o, d, bud = (ray_major(x) for x in (waves.orig, waves.dir,
+                                            P.trace_budget(cfg, waves)))
+        ref_traces = {
+            "b bounce 1": trace(st, o, d, engine="kernel", t_budget=bud,
+                                ray_block=cfg.trace_ray_block,
+                                with_aux=cfg.trace_aux_baked),
+            "b fan": trace(st, *fan(GATE_RAYS, dev), engine="kernel")}
+    del st, waves, o, d, bud
+    # e: the single-process loss and gradient of the same global objective
+    st_f, true, start, cfg_f, poses_f, draws_f, _ = fit_setup(dev)
+    d0 = (draws_f[0][0], draws_f[1][0])
+    with torch.no_grad():
+        target = P.simulate_frame(st_f, true, cfg_f, poses_f[0],
+                                  cone_draws=d0).image_float
+    leaves = [x.detach().clone().requires_grad_(True)
+              for x in (*start.materials, start.beam_width)]
+    p = start._replace(materials=Materials(*leaves[:4]), beam_width=leaves[4])
+    loss1 = SH.psnr_loss(P.simulate_frame(st_f, p, cfg_f, poses_f[0],
+                                          cone_draws=d0).image_float,
+                         target, cfg_f.signal_max)
+    g1 = torch.cat([g.reshape(-1) for g in torch.autograd.grad(
+        loss1, leaves)])
+    del st_f
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_layouts_") as tmp:
+        store_scene_host("phase11", host, cache_dir=Path(tmp))
+        t0 = time.perf_counter()
+        out = run_ranks(layouts_rank_chip, RANKS, backend="gloo",
+                        device="cuda",
+                        args=(tmp, "phase11", n_objects, cfg,
+                              pose.numpy(), inputs,
+                              target.cpu().numpy()))
+        ranks_s = time.perf_counter() - t0
+    ranks = out["ranks"]
+    info = dict(gpu=smi, ranks=RANKS, backend="gloo", label=SHARING,
+                ranks_wall_s=ranks_s, per_rank=ranks)
+    want_k = {"sweep", "prep_hier", "coarse_words", "bin"}
+    for tag, layout, _ in SUBPHASES:
+        ref = refs[tag]
+        u8, img, mv = (torch.from_numpy(x) for x in out[tag])
+        got = P.FrameResult(image_u8=u8, image_float=img, max_val=mv)
+        row = dict(layout=SUBPHASE_NAMES[tag], **frame_contract(got, ref))
+        check(all(r[tag]["launches"][k] > 0 for r in ranks for k in want_k),
+              f"11{tag}: a rank did not launch K1, K2, K3 and K5: "
+              f"{[r[tag]['launches'] for r in ranks]}")
+        check(all(all(r[tag]["kernels_bitwise"].values()) for r in ranks),
+              f"11{tag}: kernels vs plain {[r[tag]['kernels_bitwise'] for r in ranks]}")
+        row.update(
+            ms_per_frame_rank0=ranks[0][tag]["ms_per_frame"],
+            peak_mib_per_rank=[r[tag]["peak_mib"] for r in ranks],
+            resident_scene_mib_per_rank=[r[tag]["resident_scene_mib"]
+                                         for r in ranks],
+            whole_scene_mib=ranks[0]["whole_scene_mib"],
+            launches_per_rank=[r[tag]["launches"] for r in ranks],
+            kernels_bitwise_per_rank=[r[tag]["kernels_bitwise"]
+                                      for r in ranks],
+            rays_bounce1_per_rank=[r[tag]["rays_bounce1"] for r in ranks])
+        if "combine_ms" in ranks[0][tag]:
+            row["combine_ms_per_bounce_rank0"] = ranks[0][tag]["combine_ms"]
+        for key in ("combine_host_ms", "wedge_ms", "assemble_ms",
+                    "assemble_host_ms"):
+            if key in ranks[0][tag]:
+                row[key + "_rank0"] = ranks[0][tag][key]
+        if tag == "b":
+            row["fan_vs_unsharded"] = shard_trace_contract(
+                out["b fan"], ref_traces["b fan"])
+            row["bounce_1_vs_unsharded"] = shard_trace_contract(
+                out["b bounce 1"], ref_traces["b bounce 1"])
+        info[tag] = row
+        log(f"[11{tag} {SUBPHASE_NAMES[tag]}; {SHARING}] "
+            f"{json.dumps({k: v for k, v in row.items() if k != 'launches_per_rank'})}")
+    # e: the training step against the single-process objective
+    e = [r["e"] for r in ranks]
+    want_e = {"sweep", "prep_flat", "bin", "bin_bwd"}
+    check(all(r["launches"][k] > 0 for r in e for k in want_e),
+          f"11e launches {[r['launches'] for r in e]}")
+    check(all(all(r["kernels_bitwise"].values()) for r in e),
+          f"11e kernels vs plain {[r['kernels_bitwise'] for r in e]}")
+    gr = torch.tensor(e[0]["grads"], dtype=torch.float32)
+    g1 = g1.detach().cpu()
+    g_err = float((gr - g1).abs().max())
+    loss1 = float(loss1.detach())
+    l_err = abs(e[0]["loss_of_grads"] - loss1) / abs(loss1)
+    old = torch.cat([x.detach().reshape(-1).cpu()
+                     for x in (*start.materials, start.beam_width)])
+    new = torch.tensor([v for x in e[0]["new_params"]
+                        for v in np.ravel(x)], dtype=torch.float32)
+    row = dict(layout="train_step_sharded, azimuth x 4", loss=e[0]["loss"],
+               loss_single=float(loss1), loss_rel_err=l_err,
+               grad_max_abs_err=g_err, grad_max=float(g1.abs().max()),
+               params_finite=bool(torch.isfinite(new).all()),
+               params_moved=bool((new != old).any()),
+               ms_per_step_rank0=e[0]["ms_per_step"],
+               peak_mib_per_rank=[r["peak_mib"] for r in e],
+               launches_per_rank=[r["launches"] for r in e],
+               kernels_bitwise_per_rank=[r["kernels_bitwise"] for r in e])
+    info["e"] = row
+    log(f"[11e train step; {SHARING}] "
+        f"{json.dumps({k: v for k, v in row.items() if k != 'launches_per_rank'})}")
+    check(l_err <= 1e-6, f"11e loss {e[0]['loss_of_grads']} vs {float(loss1)}")
+    check(g_err <= 1e-5 * float(g1.abs().max()),
+          f"11e gradient: max abs error {g_err}")
+    check(row["params_finite"] and row["params_moved"], "11e parameters")
+    check(all(r["loss"] == e[0]["loss"] for r in e), "11e ranks' losses")
+    # the NCCL path: the dry run on one rank
+    t0 = time.perf_counter()
+    nccl = dryrun_multidevice(1, device="cuda", backend="nccl")
+    info["nccl_dryrun"] = dict(world=1, wall_s=time.perf_counter() - t0,
+                               layouts=sorted(k for k in nccl
+                                              if k != "train"),
+                               train_loss=nccl["train"][0])
+    log(f"[11 nccl dry run] {json.dumps(info['nccl_dryrun'])}")
+    info["phase_s"] = time.perf_counter() - t_phase
+    log(f"[11 layouts] {info['phase_s']:.1f} s")
+    return info
+
+
+def shard_trace_contract(got, want) -> dict:
+    """A scene-sharded trace (numpy TraceResult fields of rank 0) against
+    the unsharded kernel trace: hit equal, t bit for bit on hits but for
+    exact-distance ties (the lanes whose obj_id differs: the shards' sweep
+    ranks ties by its own order), where t agrees within rtol 1e-6."""
+    import numpy as np
+
+    hit, t, _, obj = got[:4]
+    w_hit, w_t, w_obj = (x.cpu().numpy() for x in (want.hit, want.t,
+                                                   want.obj_id))
+    check(np.array_equal(hit, w_hit), f"{int((hit != w_hit).sum())} hits "
+          "differ from the unsharded trace")
+    ties = obj != w_obj
+    exact = hit & ~ties
+    check(np.array_equal(t[exact], w_t[exact]),
+          f"{int((t[exact] != w_t[exact]).sum())} distances differ off ties")
+    np.testing.assert_allclose(t[ties], w_t[ties], rtol=1e-6, atol=0)
+    check(ties.mean() < 0.02, f"{int(ties.sum())} tie lanes")
+    return dict(rays=int(hit.size), hit_rate=float(hit.mean()),
+                hit_mismatches=0, tie_lanes=int(ties.sum()),
+                tie_lanes_t_bitwise=int((t[ties] == w_t[ties]).sum()),
+                t_bitwise_on_hits=bool(np.array_equal(t[hit], w_t[hit])))
+
+
 def kernel_times(dev, smi: str, phases=("5", "6")) -> dict:
     """The --kernel-times run, through the port that sys.path finds first
     (main puts ROOT there): for each frame path in phases (phase 5's
@@ -2108,7 +2558,8 @@ def main() -> int:
     # ---- 9. the trace extras on the card, and the explorer
     t0 = time.perf_counter()
     st5, params5 = kaist_tensors(host5, scene5.n_objects, dev)
-    del scene5, host5, scene10
+    n_objects5 = scene5.n_objects
+    del scene5, scene10
     details["saturated"] = saturated_phase(st5, smi)
     t1 = time.perf_counter()
     details["two_phase_frames"] = two_phase_frames(st5, params5, cfg5, smi)
@@ -2172,6 +2623,10 @@ def main() -> int:
                for k, v in sat[tag]["kernel_ms"].items()}
          for tag, _, _ in SAT_SETS}))
     details["profiler_phase_s"] = time.perf_counter() - t0
+
+    # ---- 11. the multi-device layouts, ranks sharing the card
+    details["layouts"] = layouts_phase(dev, host5, n_objects5, cfg5, smi)
+    del host5
 
     source = {"sweep": "radarays_ros_tpu_torch/csrc/sweep.cu",
               "prep_hier": "radarays_ros_tpu_torch/csrc/prep.cu",

@@ -369,6 +369,41 @@ class Scene:
         return scene_tensors(self.host_arrays(cache=cache), device)
 
 
+def shard_scene_host(h: SceneHost, n_shards: int) -> list:
+    """Split a host build into n chunk-contiguous shards (the reference's
+    geom/scene.py:shard_scene_arrays, as a list of SceneHost): shard i holds
+    a contiguous run of whole chunks, every per-triangle field cut along
+    its chunk-major rows. Each shard holds the same chunk count,
+    ceil(C / n) rounded up to a multiple of 8 (so every prep group in
+    {1, 2, 4, 8} divides it): the last shards are padded with never-hit
+    chunks of far triangles at 1e8 (object INVALID_OBJ_ID) whose boxes lie
+    at 1e9. The trace tables (`scene_tensors`) and the baked material map
+    (`bake_tri_aux`) are then made per shard from its own fields."""
+    if n_shards < 1:
+        raise ValueError("n_shards must be >= 1")
+    tc = int(h.chunk_size)
+    C = h.chunk_lo.shape[0]
+    per = -(-C // n_shards)
+    per += (-per) % 8
+    pad = per * n_shards - C
+    f = {k: np.asarray(v) for k, v in h._asdict().items()
+         if k != "chunk_size"}
+    if pad:
+        pv = np.full((pad * tc, 3, 3), 1e8, np.float32)
+        pv[:, 1, 0] += 1.0   # tiny offsets keep normals finite
+        pv[:, 2, 1] += 1.0
+        pn, ppo = _triangle_planes(pv)
+        ext = dict(verts=pv, obj_ids=np.full((pad * tc,), INVALID_OBJ_ID,
+                                             np.int32),
+                   normals=pn, planes_o=ppo,
+                   chunk_lo=np.full((pad, 3), 1e9, np.float32),
+                   chunk_hi=np.full((pad, 3), 1e9, np.float32) + 1.0)
+        f = {k: np.concatenate([v, ext[k]]) for k, v in f.items()}
+    parts = {k: np.split(v, n_shards) for k, v in f.items()}
+    return [SceneHost(**{k: p[i] for k, p in parts.items()}, chunk_size=tc)
+            for i in range(n_shards)]
+
+
 def scene_tensors(h: SceneHost, device) -> SceneTensors:
     """Upload a finished host build as SceneTensors on `device`."""
     def put(a):

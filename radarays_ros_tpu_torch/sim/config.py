@@ -105,10 +105,13 @@ class RadarModelConfig:
     `port_draw_method`), trace_ray_block, trace_prep_group,
     trace_aux_baked, trace_two_phase_cap (the sweep engines), trace_k_chunks
     (the "sweep" engine, as the reference's culled) and trace_tri_chunk
-    ("mxu"). Read and ignored: trace_argmin_mode and trace_term_stride
-    (pallas3 variants that are exact with bit-identical results, measured
-    dead ends not ported, ROADMAP.md M8) and trace_scene_axis (the scene-
-    sharded layouts, ROADMAP.md M10).
+    ("mxu"). trace_scene_axis names the mesh axis of a scene-sharded
+    layout (parallel/sharding.py): where a layout has registered a group
+    under that name (parallel/groups.py), every bounce merges the ranks'
+    trace winners over it; elsewhere it is read and ignored. Read and
+    ignored: trace_argmin_mode and trace_term_stride (pallas3 variants
+    that are exact with bit-identical results, measured dead ends not
+    ported, ROADMAP.md M8).
     """
 
     z_offset: float = 0.0

@@ -35,7 +35,9 @@ from radarays_ros_tpu_torch.geom.scene import SceneTensors
 from radarays_ros_tpu_torch.image.draw import (apply_ambient_noise,
                                                draw_signals, normalize_to_u8)
 from radarays_ros_tpu_torch.sim.config import RadarModelConfig, RadarParams
-from radarays_ros_tpu_torch.trace.api import resolve_engine, trace
+from radarays_ros_tpu_torch.parallel.groups import axis_group
+from radarays_ros_tpu_torch.trace.api import (combine_trace_shards,
+                                              resolve_engine, trace)
 from radarays_ros_tpu_torch.utils.transforms import (azimuth_angles,
                                                      pose_matrix, rotz)
 from radarays_ros_tpu_torch.wave.cone import cone_local, sample_cone_draws
@@ -125,6 +127,13 @@ def _bounce(cfg: RadarModelConfig, params: RadarParams, scene: SceneTensors,
     [reflection, refraction]) and the pass's signals, a list of (time,
     strength, valid): the path return, then the multipath air return."""
     res = _trace_ray_major(cfg, scene, waves, trace_budget(cfg, waves))
+    if cfg.trace_scene_axis is not None:
+        # a scene-sharded layout merges the ranks' winners here, as the
+        # reference does (its sim/pipeline.py:148-153); outside one the
+        # axis names no group and the value is ignored
+        group = axis_group(cfg.trace_scene_axis)
+        if group is not None:
+            res = combine_trace_shards(res, group)
 
     alive = waves.valid & res.hit
     incidence = waves.move(torch.where(alive, res.t, 0.0))

@@ -40,6 +40,43 @@ class TraceResult(NamedTuple):
     aux: Optional[torch.Tensor] = None
 
 
+def combine_trace_shards(res: TraceResult, group) -> TraceResult:
+    """Merge the trace results of the ranks of `group`, each of which traced
+    the same rays against its shard of a chunk-sharded scene
+    (geom/scene.py:shard_scene_host) — the reference's trace/api.py:
+    combine_trace_shards over torch.distributed.
+
+    The nearest hit of a ray is the least of the ranks' winners: one MIN
+    all-reduce of t (+inf on a miss), a second MIN of the rank among the
+    exact-t winners (ties go to the lowest rank of `group`), then one SUM
+    all-reduce of the winner's normal, obj_id and aux as int32 bit
+    patterns, every other rank's rows zero: integer sums with zero are
+    exact, -0.0 included. The result carries no gradient."""
+    import torch.distributed as dist
+
+    rank = dist.get_rank(group)
+    t = torch.where(res.hit, res.t, torch.inf).detach().contiguous()
+    t_g = t.clone()
+    dist.all_reduce(t_g, op=dist.ReduceOp.MIN, group=group)
+    win = res.hit & (t == t_g)
+    w_rank = torch.where(win, rank, 2**30).to(torch.int32)
+    dist.all_reduce(w_rank, op=dist.ReduceOp.MIN, group=group)
+    mine = win & (w_rank == rank)
+    cols = [res.normal.detach().contiguous().view(torch.int32),
+            res.obj_id.to(torch.int32)[..., None]]
+    if res.aux is not None:
+        cols.append(res.aux.detach().contiguous().view(torch.int32)[..., None])
+    rows = torch.where(mine[..., None], torch.cat(cols, dim=-1), 0)
+    dist.all_reduce(rows, op=dist.ReduceOp.SUM, group=group)
+    hit = torch.isfinite(t_g)
+    return TraceResult(
+        hit=hit, t=t_g,
+        normal=rows[..., :3].contiguous().view(torch.float32),
+        obj_id=torch.where(hit, rows[..., 3], int(INVALID_OBJ_ID)),
+        aux=None if res.aux is None
+        else rows[..., 4].contiguous().view(torch.float32))
+
+
 def resolve_engine(engine: str, device) -> str:
     """Resolve "auto" for the device the rays live on."""
     if engine == "auto":

@@ -548,3 +548,94 @@ def test_mxu_on_card_matches_brute(scene, dev):
             trace(st, o, d, engine="mxu")
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+_LAYOUT_NAMES = ("az", "az_smp", "scene", "az_scene")
+
+
+def _within_frame_contract(got, want):
+    """tests/test_oracle.py:70-87 on (u8, image_float, max_val) numpy
+    triples: image within atol 2e-4 x max and rtol 2e-3, max_val within
+    rtol 1e-4, u8 within 1 on >= 99.5 % of pixels and never 3 apart."""
+    u8, img, mv = got
+    o_u8, o_img, o_mv = want
+    np.testing.assert_allclose(img, o_img, atol=2e-4 * o_img.max(),
+                               rtol=2e-3)
+    np.testing.assert_allclose(mv, o_mv, rtol=1e-4, atol=1e-6)
+    diff = np.abs(u8.astype(int) - o_u8.astype(int))
+    assert (diff <= 1).mean() >= 0.995 and diff.max() <= 3
+
+
+@pytest.fixture(scope="module")
+def layout_frames(dev):
+    """Every layout on 2 gloo ranks sharing the card, through the kernels
+    and through the plain versions, the same 2 ranks on the CPU (plain
+    versions), and the card's unsharded frame through the kernels: a
+    KAIST-like frame of 32 azimuths x 8 samples over a 1,600-building
+    scene at chunk size 32 (its 2 scene shards take the hierarchical
+    prep)."""
+    from radarays_ros_tpu_torch.geom.scene import scene_tensors
+    from radarays_ros_tpu_torch.parallel.dryrun import (baked, layouts_rank,
+                                                        params_numpy)
+    from radarays_ros_tpu_torch.parallel.launch import run_ranks
+    from radarays_ros_tpu_torch.sim.config import (Materials,
+                                                   RadarModelConfig,
+                                                   RadarParams)
+    from radarays_ros_tpu_torch.sim.pipeline import simulate_frame
+    from radarays_ros_tpu_torch.utils.transforms import make_pose
+
+    parts, names = make_urban_scene(n_buildings=1600, extent=100.0, seed=5)
+    scene = Scene.compose(parts, names, chunk_size=32)
+    host = scene.host_arrays(cache=False)
+    assert host.chunk_lo.shape[0] // 2 >= 8 * CT._SG     # 304 a shard
+    params = RadarParams.make(Materials.from_list([
+        dict(velocity=0.3, ambient=1.0, diffuse=0.0, specular=1.0),
+        dict(velocity=0.0, ambient=1.0, diffuse=0.0, specular=3000.0)]),
+        np.ones(scene.n_objects, np.int32), beam_width_deg=10.0)
+    cfg = RadarModelConfig(
+        n_angles=32, n_cells=1024, resolution=0.1, n_samples=8,
+        n_reflections=3, signal_denoising_triangular_width=15,
+        ambient_noise=2, opaque_materials=True, trace_engine="auto",
+        trace_ray_block=256, trace_aux_baked=True)
+    rng = np.random.default_rng(0)
+    inputs = dict(cone_draws=(rng.uniform(-np.pi, np.pi, 8).astype(np.float32),
+                              rng.standard_normal(8).astype(np.float32)),
+                  random_begin=rng.integers(0, 1000, 32))
+    pose = make_pose([0.5, 0.25, 2.0])
+    plain = dict(trace_engine="sweep", draw_method="plain")
+    frames = [(n, n, {}) for n in _LAYOUT_NAMES] + [
+        (n + "_plain", n, plain) for n in _LAYOUT_NAMES]
+    setup = (host, params_numpy(params), cfg, pose, inputs)
+    card = run_ranks(layouts_rank, 2, backend="gloo", device="cuda",
+                     args=(setup, frames))
+    cpu = run_ranks(layouts_rank, 2, backend="gloo", device="cpu",
+                    args=(setup, frames[:len(_LAYOUT_NAMES)]))
+    p = params.to(dev)
+    one = simulate_frame(baked(scene_tensors(host, dev), p, cfg), p, cfg,
+                         torch.from_numpy(pose),
+                         cone_draws=tuple(torch.from_numpy(x).to(dev)
+                                          for x in inputs["cone_draws"]),
+                         random_begin=torch.from_numpy(
+                             inputs["random_begin"]).to(dev))
+    return card, cpu, tuple(x.cpu().numpy() for x in one)
+
+
+@pytest.mark.parametrize("layout", _LAYOUT_NAMES)
+def test_layout_on_card(layout_frames, layout):
+    """A layout on 2 ranks sharing the card: through the kernels bit for
+    bit its run through the plain versions on the card; bit for bit the
+    card's unsharded frame where no rank cuts a sum apart (all but the SUM
+    over "smp", held to the frame contract); and within the frame contract
+    of the same layout's plain run on the CPU, whose transcendental
+    functions round apart from the card's."""
+    card, cpu, one = layout_frames
+    got = card[layout]
+    assert got[0].shape == (1024, 32) and got[0].max() > 0
+    for a, b in zip(got, card[layout + "_plain"]):
+        np.testing.assert_array_equal(a, b)
+    if layout == "az_smp":
+        _within_frame_contract(got, one)
+    else:
+        for a, b in zip(got, one):
+            np.testing.assert_array_equal(a, b)
+    _within_frame_contract(got, cpu[layout])
