@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
 """Chip smoke run of the PyTorch/CUDA port (radarays_ros_tpu_torch) on one
-NVIDIA GPU: builds the CUDA kernels from csrc/, checks each against its
-plain torch version, runs the trace exactness gate, and drives the main
-paths — batched KAIST-preset radar frames over a ~1M-triangle scene and
-over the ~10k-triangle companion scene, and material fitting (Adam through
-the differentiable frame) at the KAIST image size.
+NVIDIA GPU: builds the CUDA kernels from csrc/ and the host builder from
+native/src/, checks each kernel against its plain torch version, runs the
+trace exactness gate, and drives the main paths — batched KAIST-preset
+radar frames over a ~1M-triangle scene, over the ~10k-triangle companion
+scene and over bench.py's ~10M-triangle scale, and material fitting (Adam
+through the differentiable frame) at the KAIST image size.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernel-times [ROOT [PHASE ...]]
 
 Phases (one line of figures each; any failure raises and exits non-zero):
   1. environment: card name and power limit, torch/CUDA versions, TF32 off;
-  2. build: nvcc of the kernel library (seconds);
+  2. build: nvcc of the kernel library and c++ of the host builder
+     (seconds);
   3. each kernel vs its plain version on the card at the trace gate's
      shapes (200k-triangle scene, 131,072-ray fan, ray block 2048; K4 on
      the same fan against the scene's supergroups of 8 chunks, under the
@@ -121,7 +123,27 @@ Phases (one line of figures each; any failure raises and exits non-zero):
      of this process's loss of the same global objective, parameters
      finite and moved, K1, K4, K5 and its backward launched in every rank
      and bitwise on its inputs; then the dry run on one NCCL rank. The
-     ranks' times are those of 4 processes sharing one card, not scaling.
+     ranks' times are those of 4 processes sharing one card, not scaling;
+ 12. bench.py's huge_10m scale, run after phase 9 and before phase 10's
+     profiler (its kernel times are queued for phase 10, and its scene is
+     freed before phase 11): the KAIST preset over make_urban_scene(830000,
+     950, seed=7), 9,961,472 triangles in 38,912 chunks, traced with the
+     auto prep group of 4 chunks (9,728 supergroups, 10 K3 words a tile) —
+     a. the cold start through the command line: the scene as a binary PLY,
+        `prime-cache` into a temporary RADARAYS_SCENE_CACHE (the builder and
+        each stage's seconds, the entry's GB), again ("already primed"),
+        the warm load bit-equal to the cold build, the host's peak RSS;
+     b. the host build of phase 5's 1M scene by the C++ library and by
+        NumPy (RADARAYS_NO_NATIVE=1), stage by stage, every array and both
+        device tables bit-equal;
+     c. frames_phase at 10M (frames/s, launches, K3, K2, K1 and K5 against
+        their plain versions on every bounce, one frame through the kernels
+        and the plain versions), the resident scene and peak device MiB;
+     d. the kernel trace against brute on 2,048 rays of phase 4's fan
+        (equal hit and obj_id, t and normals within 1e-4);
+     e. bounce 1's rays at prep group 1 against group 4: equal hits and
+        objects, K1-K3 bitwise against their plain versions at both, and
+        their times and bounds (in phase 10).
 A kernel's time (ms) is its mean device time per launch from
 torch.profiler's CUDA activity over a loop of wrapper calls (K3's and K4's
 with the window's other device work: K3's memset that zeroes its words, an
@@ -145,8 +167,9 @@ phase 5's timed batches, K4 in phase 6's, K5's backward in phase 7's Adam
 steps) and per batch (per step for the backward); ms, wrapper_ms, plain_ms
 and bound_ms per launch averaged over a batch's launches, ms_by_bounce; the
 largest error; bound_by; library_ms (null: no single PyTorch call computes
-these functions) with a library_note saying why. Details also go to
-chiprun_out/chip_smoke.json.
+these functions) with a library_note saying why; path_10m, the same
+figures from phase 12c for K1, K2, K3 and K5 (null for the others). Details
+also go to chiprun_out/chip_smoke.json.
 
 With --kernel-times the script runs, through the port found under ROOT
 (default: this checkout), one batch of each frame path (phases 5 and 6, or
@@ -368,14 +391,17 @@ def popcount(words):
     return ((words[..., None] >> shifts) & 1).sum(dim=(-1, -2))
 
 
-def kernels_vs_plain(st, o, d, bud, rb: int, reps: int) -> dict:
+def kernels_vs_plain(st, o, d, bud, rb: int, reps: int,
+                     group: int = 0) -> dict:
     """The culling prep (K3 and K2, or K4 below the hierarchical threshold)
-    and K1 against their plain versions on one ray set; returns per-kernel
+    and K1 against their plain versions on one ray set, over supergroups of
+    `group` chunks (0: the trace's auto group); returns per-kernel
     {max_abs_err, bitwise, ms, plain_ms, bound_ms, bound_by, ...}."""
     from radarays_ros_tpu_torch.trace import cuda_trace as CT
 
+    group = group or CT._auto_prep_group(st.n_chunks)
     o, d, inv_d, bud, lo, hi, C2 = CT._prep_inputs(st, o, d, bud,
-                                                    ray_block=rb, group=1)
+                                                    ray_block=rb, group=group)
     Rp, Cp = o.shape[0], lo.shape[0]
     ray_bytes = Rp * (12 + 12 + 4)              # o, 1/d, budget
     out = {}
@@ -408,7 +434,10 @@ def kernels_vs_plain(st, o, d, bud, rb: int, reps: int) -> dict:
         out["prep_flat"], e_k, t_k = flat_vs_plain(lo, hi, o, inv_d, bud,
                                                    rb, reps)
     out["sweep"] = sweep_vs_plain(st, e_k, C2, o, d, t_k, bud, reps,
-                                  boxes=(lo[:C2], hi[:C2], inv_d))
+                                  boxes=(st.chunk_lo, st.chunk_hi, inv_d),
+                                  group=group)
+    for row in out.values():
+        row["group"] = group
     return out
 
 
@@ -475,12 +504,13 @@ def lane_kept(lo, hi, o, inv_d, cap, lim):
 
 
 def sweep_vs_plain(st, e_k, C2: int, o, d, t_k, bud, reps: int,
-                   boxes) -> dict:
-    """K1 against its plain version after the prep's entries e_k, with the
-    visits the plain version's loop made, the visits the lanes need by
-    their block's ranking (per lane, the ranked entries of its block <=
-    min(best_t, t_last) at the end), and the chunks each lane keeps itself
-    (lane_kept on boxes = (lo, hi, inv_d)), from which the bound is
+                   boxes, group: int = 1) -> dict:
+    """K1 against its plain version after the prep's entries e_k over
+    supergroups of `group` chunks, with the supergroup visits the plain
+    version's loop made, the visits the lanes need by their block's ranking
+    (per lane, the ranked entries of its block <= min(best_t, t_last) at
+    the end), and the chunks each lane keeps itself (lane_kept on the chunk
+    boxes = (lo, hi, inv_d), whatever the group), from which the bound is
     counted."""
     import torch
 
@@ -488,7 +518,7 @@ def sweep_vs_plain(st, e_k, C2: int, o, d, t_k, bud, reps: int,
 
     nvisit, order, entry = CT._rank(e_k[:, :C2])
     args = (nvisit, order, entry, o, d, t_k, st.coef, st.fetch)
-    kw = dict(tc=st.chunk_size, group=1, t_min=0.0)
+    kw = dict(tc=st.chunk_size, group=group, t_min=0.0)
     bt_k, bi_k, rows_k = CT.sweep(*args, **kw)
     bt_p, bi_p, rows_p, visits = CT._sweep_plain(*args, **kw,
                                                  with_visits=True)
@@ -653,20 +683,23 @@ def bin_bwd_vs_plain(cell, s, got, kw: dict, reps: int) -> dict:
                  lambda: bin_bwd(cell, s, got, g, **kw), reps, "bin_bwd")
 
 
-def kaist_setup(device, n_buildings: int = 83000):
+def kaist_setup(device, n_buildings: int = 83000, extent: float = 300.0):
     """bench.py:119-182: the MulRan KAIST preset over the urban scene
-    (~1M triangles, or the 10k companion at 800 buildings), opaque
-    wall-stone everywhere, the material map baked."""
+    (~1M triangles, or the 10k companion at 800 buildings, or bench.py's
+    ~10M companion at 830,000 over extent 950), opaque wall-stone
+    everywhere, the material map baked."""
     from radarays_ros_tpu_torch.geom.primitives import make_urban_scene
     from radarays_ros_tpu_torch.geom.scene import Scene
     from radarays_ros_tpu_torch.sim.config import RadarModelConfig
 
     t0 = time.perf_counter()
-    parts, names = make_urban_scene(n_buildings=n_buildings, extent=300.0,
+    parts, names = make_urban_scene(n_buildings=n_buildings, extent=extent,
                                     seed=7)
     scene = Scene.compose(parts, names, chunk_size=256)
+    del parts, names
     t1 = time.perf_counter()
-    host = scene.host_arrays(cache=False)
+    stages = {}
+    host = scene.host_arrays(cache=False, stages=stages)
     t_host = time.perf_counter()
     st, params = kaist_tensors(host, scene.n_objects, device)
     t2 = time.perf_counter()
@@ -684,7 +717,7 @@ def kaist_setup(device, n_buildings: int = 83000):
         trace_ray_block=2048, trace_aux_baked=True)
     return scene, st, params, cfg, dict(
         scene_gen_s=t1 - t0, host_build_s=t_host - t1,
-        host_build_and_upload_s=t2 - t1,
+        host_build_stages=stages, host_build_and_upload_s=t2 - t1,
         n_triangles=st.n_triangles, n_chunks=st.n_chunks), host
 
 
@@ -1283,8 +1316,7 @@ def cli_phase(dev, scene5, host5, cfg, info5, scene10) -> dict:
             warm = loaded.host_arrays(cache=True)
             info["warm_start_s"] = time.perf_counter() - t0
             info["cold_build_s_phase5"] = info5["host_build_s"]
-            check(all(np.array_equal(a, b) and np.asarray(a).dtype
-                      == np.asarray(b).dtype for a, b in zip(warm, host5)),
+            check(hosts_equal(warm, host5),
                   "the warm SceneHost differs from the cold build")
             out, info["info_s"] = cli(["info", "--mesh",
                                        path("urban_1m.ply")])
@@ -1936,6 +1968,219 @@ def explorer_phase(dev) -> dict:
     return out
 
 
+HUGE_BUILDINGS = 830000   # bench.py:324, the huge_10m scale companion
+HUGE_EXTENT = 950.0
+HUGE_GATE_RAYS = 2048     # rays of the fan held against brute at 10M
+
+
+def peak_rss_gib() -> float:
+    """The process's peak resident set so far (ru_maxrss, KiB on Linux)."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def hosts_equal(a, b) -> bool:
+    """Two SceneHost builds bit for bit (dtypes and every array's bytes)."""
+    import numpy as np
+
+    return all(x == y if name == "chunk_size" else
+               (np.asarray(x).dtype == np.asarray(y).dtype
+                and np.asarray(x).shape == np.asarray(y).shape
+                and np.asarray(x).tobytes() == np.asarray(y).tobytes())
+               for name, x, y in zip(a._fields, a, b))
+
+
+def native_vs_numpy(scene, host) -> dict:
+    """12b: the host build of `scene` (phase 5's 1M scene, whose build by
+    the library is `host`) by the library and by NumPy (RADARAYS_NO_NATIVE
+    =1), stage by stage, and the device tables of both: every array bit
+    for bit."""
+    import numpy as np
+
+    from radarays_ros_tpu_torch.geom.scene import device_tables
+
+    out, builds, tables = {}, {}, {}
+    old = os.environ.get("RADARAYS_NO_NATIVE")
+    try:
+        for name, flag in (("native", "0"), ("numpy", "1")):
+            os.environ["RADARAYS_NO_NATIVE"] = flag
+            stages = {}
+            t0 = time.perf_counter()
+            builds[name] = scene._build_host(stages)
+            stages["build_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            tables[name] = device_tables(builds[name])
+            stages["tables_s"] = time.perf_counter() - t0
+            out[name] = stages
+    finally:
+        if old is None:
+            os.environ.pop("RADARAYS_NO_NATIVE", None)
+        else:
+            os.environ["RADARAYS_NO_NATIVE"] = old
+    out["host_bitwise"] = hosts_equal(builds["native"], builds["numpy"])
+    out["host_bitwise_phase5"] = hosts_equal(builds["native"], host)
+    out["tables_bitwise"] = all(
+        a.tobytes() == b.tobytes() and a.dtype == b.dtype == np.float32
+        for a, b in zip(tables["native"], tables["numpy"]))
+    out["speedup"] = out["numpy"]["build_s"] / out["native"]["build_s"]
+    log(f"[12b native vs numpy, 1M] {json.dumps(out)}")
+    check(out["host_bitwise"] and out["host_bitwise_phase5"]
+          and out["tables_bitwise"],
+          "the library's build differs from the NumPy build")
+    return out
+
+
+def huge_phase(dev, smi: str, scene5, host5) -> tuple:
+    """Phase 12, bench.py's huge_10m scale (make_urban_scene(830000, 950,
+    seed=7), the KAIST preset, prep group auto = 4): a. the cold start
+    through the CLI (the scene as a binary PLY, prime-cache into a
+    temporary cache, again: already primed; the warm load bit-equal to the
+    cold build), the host's peak RSS; b. native_vs_numpy on phase 5's 1M
+    scene; c. frames_phase at 10M, with the resident scene and peak device
+    MiB; d. kernel against brute on 2,048 rays of the fan; e. the bounce-1
+    rays of c at prep group 1 against the auto group 4 (hits and objects
+    equal; K1-K3 against their plain versions, their times queued).
+    Returns (details, the scene tensors, c's launches, its trace kernels by
+    bounce, its K5 rows, e's kernels by group)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from radarays_ros_tpu_torch.geom.mesh import load_mesh, save_ply
+    from radarays_ros_tpu_torch.trace import cuda_trace as CT
+    from radarays_ros_tpu_torch.trace.api import trace
+
+    t_phase = time.perf_counter()
+    info = dict(gpu=smi, rss_gib_before=peak_rss_gib())
+    scene, st, params, cfg, setup, host = kaist_setup(
+        dev, n_buildings=HUGE_BUILDINGS, extent=HUGE_EXTENT)
+    info.update(setup=setup, rss_gib_after_setup=peak_rss_gib())
+    log(f"[12 scene] {json.dumps(setup)}")
+    check(CT._auto_prep_group(st.n_chunks) == 4,
+          f"{st.n_chunks} chunks: auto prep group is not 4")
+
+    # ---- 12a. the cold start through the command line
+    old_cache = os.environ.get("RADARAYS_SCENE_CACHE")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_10m_") as tmp:
+        os.environ["RADARAYS_SCENE_CACHE"] = os.path.join(tmp, "cache")
+        try:
+            ply = os.path.join(tmp, "urban_10m.ply")
+            t0 = time.perf_counter()
+            save_ply(ply, scene)
+            a = dict(ply_write_s=time.perf_counter() - t0,
+                     ply_gib=os.path.getsize(ply) / 2**30)
+            out, a["prime_cache_s"] = cli(["prime-cache", "--mesh", ply])
+            m = match(r"primed (\d+) triangles \((\d+) chunks\) in "
+                      r"([\d.]+)s -> (\S+) \(([\d.]+) GB\)", out)
+            a["cache_gb"] = float(m.group(5))
+            check(int(m.group(1)) == scene.n_triangles
+                  and int(m.group(2)) == st.n_chunks, out)
+            m = match(r"builder (\w+) \((\w+)\): ordering ([\d.]+) s, planes"
+                      r" and AABBs ([\d.]+) s, coef and fetch tables "
+                      r"([\d.]+) s, store ([\d.]+) s", out)
+            check(m.group(1) == "native", f"prime-cache ran {m.group(1)}")
+            a.update(builder=m.group(1), variant=m.group(2),
+                     order_s=float(m.group(3)), planes_s=float(m.group(4)),
+                     tables_s=float(m.group(5)), store_s=float(m.group(6)))
+            a["rss_gib_after_prime"] = peak_rss_gib()
+            out, a["prime_again_s"] = cli(["prime-cache", "--mesh", ply])
+            match(r"already primed", out)
+            t0 = time.perf_counter()
+            loaded = load_mesh(ply)
+            a["ply_load_s"] = time.perf_counter() - t0
+            check(np.array_equal(loaded.verts, scene.verts)
+                  and np.array_equal(loaded.obj_ids, scene.obj_ids),
+                  "the 10M PLY does not read back to the scene")
+            t0 = time.perf_counter()
+            warm = loaded.host_arrays(cache=True)
+            a["warm_start_s"] = time.perf_counter() - t0
+            a["warm_bitwise_cold"] = hosts_equal(warm, host)
+            check(a["warm_bitwise_cold"],
+                  "the warm 10M build differs from the cold build")
+            del loaded, warm
+        finally:
+            if old_cache is None:
+                os.environ.pop("RADARAYS_SCENE_CACHE", None)
+            else:
+                os.environ["RADARAYS_SCENE_CACHE"] = old_cache
+    a["rss_gib_peak"] = peak_rss_gib()
+    info["cold_start"] = a
+    log(f"[12a cold start, 10M] {json.dumps(a)}")
+    del scene, host
+
+    # ---- 12b. the library against NumPy at 1M
+    info["native_vs_numpy_1m"] = native_vs_numpy(scene5, host5)
+
+    # ---- 12c. frames at 10M
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    frames, launches, bb, k5, fvp = frames_phase(
+        "12", st, params, cfg, dev, expect_zero=("prep_flat", "bin_bwd"))
+    frames.update(scene_mib=scene_mib(st),
+                  peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+                  prep_group=CT._auto_prep_group(st.n_chunks))
+    info.update(frames=frames, frame_vs_plain=fvp)
+    log(f"[12c memory] scene {frames['scene_mib']:.1f} MiB, peak "
+        f"{frames['peak_mib']:.1f} MiB")
+
+    # ---- 12d. the trace gate at 10M: kernel against brute
+    o, d = fan(GATE_RAYS, dev)
+    rk = trace(st, o, d, engine="kernel")
+    sub = torch.arange(0, o.shape[0], o.shape[0] // HUGE_GATE_RAYS,
+                       device=dev)[:HUGE_GATE_RAYS]
+    t0 = time.perf_counter()
+    rb_ = trace(st, o[sub], d[sub], engine="brute")
+    torch.cuda.synchronize()
+    hit_b = rb_.hit
+    gate = dict(rays=int(sub.numel()), brute_s=time.perf_counter() - t0,
+                hit_rate=float(hit_b.float().mean()),
+                hit_mismatches=int((rk.hit[sub] != hit_b).sum()),
+                obj_mismatches=int((rk.obj_id[sub] != rb_.obj_id).sum()),
+                max_abs_dt=float((rk.t[sub][hit_b] - rb_.t[hit_b]).abs()
+                                 .max()) if hit_b.any() else 0.0,
+                max_abs_dn=float((rk.normal[sub] - rb_.normal).abs().max()))
+    gate["contract"] = bool(
+        gate["hit_mismatches"] == 0 and gate["obj_mismatches"] == 0
+        and torch.allclose(rk.t[sub][hit_b], rb_.t[hit_b], rtol=1e-4,
+                           atol=1e-4)
+        and torch.allclose(rk.normal[sub], rb_.normal, atol=1e-4))
+    info["trace_gate"] = gate
+    log(f"[12d trace gate, 10M] {json.dumps(gate)}")
+    check(gate["contract"] and gate["hit_rate"] > 0.5,
+          "the 10M trace misses the brute contract")
+    del rk, rb_, o, d
+
+    # ---- 12e. prep group 1 against the auto group 4 on bounce 1's rays
+    gen = torch.Generator(dev).manual_seed(0)
+    waves0, sensor_pos, _ = batch_waves(params, cfg, batch_poses(), gen, dev)
+    _, _, o, d, budget = next(bounce_rays(st, params, cfg, waves0,
+                                          sensor_pos))
+    res = {g: trace(st, o, d, engine="kernel", t_budget=budget,
+                    prep_group=g, ray_block=cfg.trace_ray_block)
+           for g in (1, 4)}
+    groups = {g: kernels_vs_plain(st, o, d, budget, rb=cfg.trace_ray_block,
+                                  reps=10, group=g) for g in (1, 4)}
+    e = dict(rays=int(o.shape[0]),
+             hit_equal=bool(torch.equal(res[1].hit, res[4].hit)),
+             obj_equal=bool(torch.equal(res[1].obj_id, res[4].obj_id)),
+             t_bitwise=bool(torch.equal(res[1].t, res[4].t)),
+             hit_rate=float(res[4].hit.float().mean()))
+    for g, rows in groups.items():
+        e[f"group_{g}"] = {k: {kk: v[kk] for kk in (
+            "bitwise", "plain_ms", "bound_ms", "bound_by")} for k, v in
+            rows.items()}
+    info["groups_1_vs_4"] = e
+    log(f"[12e prep group 1 vs 4, bounce 1] {json.dumps(e)}")
+    check(e["hit_equal"] and e["obj_equal"],
+          "prep group 1 and 4 trace different hits")
+    del res, waves0
+    info["phase_s"] = time.perf_counter() - t_phase
+    log(f"[12 phase] {info['phase_s']:.1f} s")
+    return info, st, launches, bb, k5, groups
+
+
 RANKS = 4            # phase 11's ranks, all on the one card
 LAYOUT_REPS = 5      # timed frames per layout in phase 11
 COMBINE_REPS = 10    # timed combines per scene layout
@@ -2456,10 +2701,15 @@ def main() -> int:
                           device_count=torch.cuda.device_count(), **tf32)
     log(f"[1 env] {json.dumps(details['env'])}")
 
-    # ---- 2. build
+    # ---- 2. build: the kernels, and the host builder in C++
+    from radarays_ros_tpu_torch.native import builder as native_builder
+
     b = cuda_build.build()
-    details["build"] = dict(seconds=b.seconds, library=b.path.name)
-    log(f"[2 build] nvcc {b.seconds:.2f} s -> {b.path.name}")
+    nb = native_builder.build()
+    details["build"] = dict(seconds=b.seconds, library=b.path.name,
+                            native_s=nb.seconds, native_library=nb.path.name)
+    log(f"[2 build] nvcc {b.seconds:.2f} s -> {b.path.name}; c++ "
+        f"{nb.seconds:.2f} s -> {nb.path.name}")
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "ptxas.txt"), "w") as f:
@@ -2559,7 +2809,7 @@ def main() -> int:
     t0 = time.perf_counter()
     st5, params5 = kaist_tensors(host5, scene5.n_objects, dev)
     n_objects5 = scene5.n_objects
-    del scene5, scene10
+    del scene10
     details["saturated"] = saturated_phase(st5, smi)
     t1 = time.perf_counter()
     details["two_phase_frames"] = two_phase_frames(st5, params5, cfg5, smi)
@@ -2576,6 +2826,12 @@ def main() -> int:
     log(f"[9 trace extras] {details['phase_9_s']:.1f} s "
         f"{json.dumps(details['phase_9_parts_s'])}")
 
+    # ---- 12. bench.py's ~10M-triangle scale, before the profiler
+    huge, st12, launches12, bb12, k5_12, groups12 = huge_phase(
+        dev, smi, scene5, host5)
+    details["huge_10m"] = huge
+    del scene5
+
     # ---- 10. the profiler's figures, after every end-to-end figure
     t0 = time.perf_counter()
     while DEFERRED:
@@ -2584,7 +2840,8 @@ def main() -> int:
     details["copy_check_control"] = control
     log(f"[10 copy check, positive control] memcpy_calls_in_bin {control}")
     check(control >= 1, "the copy check missed a copy made inside _Bin")
-    for tag, fr in (("5", frames), ("6", frames10)):
+    for tag, fr in (("5", frames), ("6", frames10),
+                    ("12", huge["frames"])):
         log(f"[10 batch profile, phase {tag}] {json.dumps(fr['profile'])}")
         check(fr["profile"]["bin_calls"] > 0
               and fr["profile"]["memcpy_calls_in_bin"] == 0,
@@ -2604,14 +2861,16 @@ def main() -> int:
     times = ("ms", "wrapper_ms", "ms_source")
     log("[10 kernel times, gate shapes] " + json.dumps(
         {k: {kk: v[kk] for kk in times} for k, v in gk.items()}))
-    for tag, bb in (("5", bb5), ("6", bb6)):
+    for tag, bb in (("5", bb5), ("6", bb6), ("12", bb12)):
         for i, mb in enumerate(bb):
             log(f"[10 kernel times, phase {tag} bounce {i + 1}] " + json.dumps(
                 {k: {kk: v[kk] for kk in times} for k, v in mb.items()}))
     mk, mk10 = kernel_rows(bb5, k5_5), kernel_rows(bb6, k5_6)
-    details.update(kernels_main_path=mk, kernels_10k=mk10)
+    mk12 = kernel_rows(bb12, k5_12)
+    details.update(kernels_main_path=mk, kernels_10k=mk10, kernels_10m=mk12)
     for tag, rows in (("5", mk), ("6", mk10),
-                      ("7", details["fit"]["kernels_fit_shapes"])):
+                      ("7", details["fit"]["kernels_fit_shapes"]),
+                      ("12", mk12)):
         log(f"[10 kernel times, phase {tag}, per launch] " + json.dumps(
             {k: {kk: v[kk] for kk in (*times, "plain_ms", "bound_ms",
                                       "bound_by") if kk in v}
@@ -2622,7 +2881,19 @@ def main() -> int:
                              for kk in ("bound_ms", "bound_by")})
                for k, v in sat[tag]["kernel_ms"].items()}
          for tag, _, _ in SAT_SETS}))
+    groups = {f"group_{g}": {k: {kk: v[kk] for kk in (
+        *times, "plain_ms", "bound_ms", "bound_by")} for k, v in rows.items()}
+        for g, rows in groups12.items()}
+    huge["groups_1_vs_4"]["kernel_ms"] = groups
+    log(f"[10 kernel times, phase 12e, prep group 1 vs 4] "
+        f"{json.dumps(groups)}")
     details["profiler_phase_s"] = time.perf_counter() - t0
+    # the 10M scene's tensors go before the ranks load phase 5's build
+    del st12, bb12, groups12
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # ---- 11. the multi-device layouts, ranks sharing the card
     details["layouts"] = layouts_phase(dev, host5, n_objects5, cfg5, smi)
@@ -2657,6 +2928,15 @@ def main() -> int:
     table = []
     for k in source:
         n, m, per, path = rows[k][0][k], rows[k][1][k], *rows[k][2:]
+        m12 = mk12.get(k) if k in ("sweep", "prep_hier", "coarse_words",
+                                   "bin") else None
+        at_10m = None if m12 is None else dict(
+            launches=launches12[k], launches_per_batch=launches12[k]
+            / TIMED_BATCHES, ms=m12["ms"], wrapper_ms=m12["wrapper_ms"],
+            ms_by_bounce=m12.get("ms_by_bounce", [m12["ms"]]),
+            plain_ms=m12["plain_ms"], bound_ms=m12["bound_ms"],
+            bound_by=m12["bound_by"], max_abs_err=m12["max_abs_err"],
+            prep_group=huge["frames"]["prep_group"])
         table.append(dict(
             name=k, route="cuda", source=source[k], replaces=replaces[k],
             path=path, launches=n, launches_per_batch=n / per,
@@ -2665,7 +2945,7 @@ def main() -> int:
             ms_by_bounce=m.get("ms_by_bounce", [m["ms"]]),
             plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
             bound_by=m["bound_by"], library_ms=None,
-            library_note=LIBRARY_NOTE[k]))
+            library_note=LIBRARY_NOTE[k], path_10m=at_10m))
     details["kernels"] = table
     details["total_s"] = time.perf_counter() - t_main
     log(f"[total] {details['total_s']:.1f} s from phase 1 to the table")

@@ -24,3 +24,12 @@ torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
 __version__ = "0.1.0"
+
+from radarays_ros_tpu_torch.sim.config import (  # noqa: E402,F401
+    RadarModelConfig,
+    RadarParams,
+    Materials,
+    AmbientNoiseParams,
+)
+from radarays_ros_tpu_torch.sim.radar import Radar  # noqa: E402,F401
+from radarays_ros_tpu_torch.geom.scene import Scene  # noqa: E402,F401

@@ -11,7 +11,11 @@ warm start costs one np.load.
 The port's entries hold its own host build (`SceneHost`: f32 planes and
 AABBs, no bf16 kernel tables), so its layout version and builder flavor are
 its own and are folded into the key: an entry of the JAX package can never
-be mistaken for one of the port's, even in a shared cache directory.
+be mistaken for one of the port's, even in a shared cache directory. The
+flavor (geom/scene.py:cache_flavor) names the ordering variant and the
+builder's table version, and for the median split the builder too: the SAH
+build's bytes are the same from the C++ library and from NumPy, so the two
+share its entries.
 
 Storage: one .npz per scene under RADARAYS_SCENE_CACHE (default
 ~/.cache/radarays_tpu/scenes), written atomically (temporary file + rename)
@@ -38,8 +42,8 @@ _log = logging.getLogger(__name__)
 # bump when the SceneHost field set or a table layout changes
 LAYOUT_VERSION = 1
 
-# the port's one host builder: the NumPy SAH split of geom/scene.py
-BUILDER_FLAVOR = "torch-numpy-sah"
+# the prefix of the port's builder flavors (geom/scene.py:cache_flavor)
+BUILDER_FLAVOR = "torch"
 
 DEFAULT_MAX_GB = 24.0
 
@@ -52,8 +56,13 @@ def default_cache_dir() -> Path:
 
 
 def scene_cache_key(verts: np.ndarray, obj_ids: np.ndarray, chunk_size: int,
-                    builder_flavor: str = BUILDER_FLAVOR) -> str:
-    """Content hash of everything host_arrays derives its output from."""
+                    builder_flavor: Optional[str] = None) -> str:
+    """Content hash of everything host_arrays derives its output from; the
+    flavor defaults to that of the active builder and ordering."""
+    if builder_flavor is None:
+        from radarays_ros_tpu_torch.geom.scene import cache_flavor
+
+        builder_flavor = cache_flavor()
     h = hashlib.sha256()
     h.update(f"torch-v{LAYOUT_VERSION}|{chunk_size}|{builder_flavor}|"
              f"{verts.shape}|{obj_ids.shape}|".encode())

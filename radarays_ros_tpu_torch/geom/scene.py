@@ -1,9 +1,12 @@
-"""Scene representation: host build (NumPy) + the torch tensors the tracers use.
+"""Scene representation: the host build + the torch tensors the tracers use.
 
 Counterpart of radarays_ros_tpu/geom/scene.py. The host side — padding with
 far triangles, the SAH-scored leaf ordering, the plane equations and chunk
 AABBs — is a NumPy copy of the reference's builders (that package cannot be
-imported without jax), held bit-identical by tests/test_torch_geom.py.
+imported without jax), held bit-identical by tests/test_torch_geom.py. By
+default the C++ library of native/builder.py runs each step instead, bit-
+equal to the NumPy functions here (tests/test_torch_native.py), which stay
+as its plain version: RADARAYS_NO_NATIVE=1 selects them.
 
 The device side differs on purpose: the reference stores bf16 split-exact
 tables (sweep_table_t, tri_table_t) because the TPU's matrix unit truncates
@@ -28,6 +31,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
+import time
 import warnings
 from typing import NamedTuple, Optional, Sequence
 
@@ -70,6 +74,30 @@ def _triangle_planes(verts: np.ndarray):
         [N.reshape(-1, 3), O.reshape(-1, 1)], axis=-1
     ).astype(np.float32)                          # (4T, 4)
     return n_unit.astype(np.float32), planes_o
+
+
+def _median_split_order(centers: np.ndarray, chunk_size: int) -> np.ndarray:
+    """Top-down longest-axis median split into leaves of exactly chunk_size
+    (copy of the reference's geom/scene.py:_median_split_order), the
+    ordering of RADARAYS_ORDER_VARIANT=median."""
+    n = centers.shape[0]
+    assert n % chunk_size == 0
+    out = np.empty(n, np.int64)
+    pos = 0
+    stack = [np.arange(n)]
+    while stack:
+        s = stack.pop()
+        if s.shape[0] <= chunk_size:
+            out[pos:pos + s.shape[0]] = s
+            pos += s.shape[0]
+            continue
+        c = centers[s]
+        ax = int(np.argmax(c.max(axis=0) - c.min(axis=0)))
+        half = ((s.shape[0] // 2) // chunk_size) * chunk_size
+        part = np.argpartition(c[:, ax], half)
+        stack.append(s[part[half:]])
+        stack.append(s[part[:half]])
+    return out
 
 
 def _median_split_order_sah(centers: np.ndarray, tri_lo: np.ndarray,
@@ -125,6 +153,33 @@ def _median_split_order_sah(centers: np.ndarray, tri_lo: np.ndarray,
         stack.append(right)
         stack.append(left)
     return out
+
+
+def ordering_variant() -> str:
+    """The chunk ordering, from RADARAYS_ORDER_VARIANT (the reference's
+    variable): "sah" (default) or "median"."""
+    variant = os.environ.get("RADARAYS_ORDER_VARIANT", "sah")
+    if variant not in ("sah", "median"):
+        raise ValueError(f"RADARAYS_ORDER_VARIANT={variant!r}: expected "
+                         "'sah' or 'median'")
+    return variant
+
+
+def cache_flavor(variant: Optional[str] = None) -> str:
+    """The scene-cache key's builder flavor for the ordering variant and
+    the active builder: the SAH build's bytes are the same from the library
+    and from NumPy, so both share one key, with the builder's table
+    version; the median split's are not (centroid ties), so its flavor
+    names the builder."""
+    from radarays_ros_tpu_torch.geom.cache import BUILDER_FLAVOR
+    from radarays_ros_tpu_torch.native import builder as nb
+
+    variant = variant or ordering_variant()
+    version = nb.builder_version() if nb.enabled() else nb.BUILDER_VERSION
+    if variant == "sah":
+        return f"{BUILDER_FLAVOR}-sah-b{version}"
+    return (f"{BUILDER_FLAVOR}-median-native-b{version}" if nb.enabled()
+            else f"{BUILDER_FLAVOR}-median-numpy")
 
 
 def edge_coefficients(planes_o: np.ndarray) -> np.ndarray:
@@ -228,7 +283,9 @@ def plane_tables(verts: torch.Tensor):
     planes_o (4T, 4) [support, edge0, edge1, edge2] and planes_d (4T, 3),
     their normals."""
     def dot(a, b):
-        return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) \
+        # np.sum over an axis of 3 adds in order to its identity +0, which
+        # turns a sum of -0 terms into +0
+        return ((0.0 + a[..., 0] * b[..., 0]) + a[..., 1] * b[..., 1]) \
             + a[..., 2] * b[..., 2]
 
     def unit(v):
@@ -297,15 +354,18 @@ class Scene:
         )
         return Scene(verts, obj_ids, names, chunk_size)
 
-    def host_arrays(self, cache: Optional[bool] = None) -> SceneHost:
-        """Pad, SAH-order and precompute planes + chunk AABBs — the NumPy
-        path of the reference's Scene.device_arrays (geom/scene.py:559-610),
+    def host_arrays(self, cache: Optional[bool] = None,
+                    stages: Optional[dict] = None) -> SceneHost:
+        """Pad, order and precompute planes + chunk AABBs — the host part
+        of the reference's Scene.device_arrays (geom/scene.py:559-610),
         without the bf16 kernel tables.
 
         cache: persist/reuse the finished build on disk, keyed by scene
         content (geom/cache.py). None (default) = on for scenes of at
         least 200k triangles, as the reference's device_arrays; True/False
-        force it. RADARAYS_SCENE_CACHE_DISABLE=1 turns it off."""
+        force it. RADARAYS_SCENE_CACHE_DISABLE=1 turns it off.
+        stages: a dict that receives the build's figures (`_build_host`)
+        and, when the build is stored, "store_s"."""
         if self.n_triangles == 0:
             raise ValueError("empty scene")
         if cache is None:
@@ -313,7 +373,7 @@ class Scene:
         if os.environ.get("RADARAYS_SCENE_CACHE_DISABLE", "0") == "1":
             cache = False
         if not cache:
-            return self._build_host()
+            return self._build_host(stages)
         from radarays_ros_tpu_torch.geom import cache as scache
 
         key = scache.scene_cache_key(self.verts, self.obj_ids,
@@ -325,15 +385,27 @@ class Scene:
             return hit
         _log.info("scene build: cache miss, building %d triangles",
                   self.n_triangles)
-        host = self._build_host()
+        host = self._build_host(stages)
+        t0 = time.perf_counter()
         try:
             scache.store_scene_host(key, host)
         except OSError as e:        # disk full / read-only cache dir
             warnings.warn(f"scene cache write failed ({e}); continuing "
                           "without cache", stacklevel=2)
+        if stages is not None:
+            stages["store_s"] = time.perf_counter() - t0
         return host
 
-    def _build_host(self) -> SceneHost:
+    def _build_host(self, stages: Optional[dict] = None) -> SceneHost:
+        """The build, by the C++ library or (RADARAYS_NO_NATIVE=1) NumPy;
+        `stages` receives the builder's name and the seconds of the
+        ordering ("order_s") and of the planes and chunk AABBs
+        ("planes_s")."""
+        from radarays_ros_tpu_torch.native import builder as nb
+
+        native = nb.enabled()
+        variant = ordering_variant()
+        t0 = time.perf_counter()
         verts, obj_ids = self.verts, self.obj_ids
         tc = self.chunk_size
         # pad first (far degenerate triangles cluster into their own
@@ -350,16 +422,34 @@ class Scene:
             verts = np.concatenate([verts, far], axis=0)
             obj_ids = np.concatenate(
                 [obj_ids, np.full((pad,), INVALID_OBJ_ID, np.int32)])
-        order = _median_split_order_sah(verts.mean(axis=1), verts.min(axis=1),
-                                        verts.max(axis=1), tc)
+        centers = verts.mean(axis=1)
+        if variant == "median":
+            order = (nb.median_split_order(centers, tc) if native
+                     else _median_split_order(centers, tc))
+        else:
+            order = (nb.sah_split_order if native else
+                     _median_split_order_sah)(centers, verts.min(axis=1),
+                                              verts.max(axis=1), tc)
         verts = np.ascontiguousarray(verts[order])
         obj_ids = np.ascontiguousarray(obj_ids[order])
-        normals, planes_o = _triangle_planes(verts)
-        chunks = verts.reshape(C, tc, 3, 3)
+        t1 = time.perf_counter()
+        if native:
+            normals, planes_o = nb.triangle_planes(verts)
+            lo, hi = nb.chunk_aabbs(verts, tc)
+        else:
+            normals, planes_o = _triangle_planes(verts)
+            chunks = verts.reshape(C, tc, 3, 3)
+            lo, hi = chunks.min(axis=(1, 2)), chunks.max(axis=(1, 2))
+        t2 = time.perf_counter()
+        _log.info("scene build (%s, %s): ordering %.2f s, planes + AABBs "
+                  "%.2f s", "native" if native else "numpy", variant,
+                  t1 - t0, t2 - t1)
+        if stages is not None:
+            stages.update(builder="native" if native else "numpy",
+                          variant=variant, order_s=t1 - t0,
+                          planes_s=t2 - t1)
         return SceneHost(verts=verts, obj_ids=obj_ids, normals=normals,
-                         planes_o=planes_o,
-                         chunk_lo=chunks.min(axis=(1, 2)).astype(np.float32),
-                         chunk_hi=chunks.max(axis=(1, 2)).astype(np.float32),
+                         planes_o=planes_o, chunk_lo=lo, chunk_hi=hi,
                          chunk_size=tc)
 
     def to_device(self, device, cache: Optional[bool] = None
@@ -404,14 +494,26 @@ def shard_scene_host(h: SceneHost, n_shards: int) -> list:
             for i in range(n_shards)]
 
 
+def device_tables(h: SceneHost):
+    """The f32 device tables of a host build, (coef (T, 22), fetch (T, 16)),
+    by the C++ library or (RADARAYS_NO_NATIVE=1) NumPy."""
+    from radarays_ros_tpu_torch.native import builder as nb
+
+    if nb.enabled():
+        return (nb.edge_coefficients(h.planes_o),
+                nb.fetch_rows(h.verts, h.normals, h.obj_ids))
+    return (edge_coefficients(h.planes_o),
+            fetch_rows(h.verts, h.normals, h.obj_ids))
+
+
 def scene_tensors(h: SceneHost, device) -> SceneTensors:
     """Upload a finished host build as SceneTensors on `device`."""
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
+    coef, fetch = device_tables(h)
     return SceneTensors(
         verts=put(h.verts), obj_ids=put(h.obj_ids), normals=put(h.normals),
-        coef=put(edge_coefficients(h.planes_o)),
-        fetch=put(fetch_rows(h.verts, h.normals, h.obj_ids)),
+        coef=put(coef), fetch=put(fetch),
         chunk_lo=put(h.chunk_lo), chunk_hi=put(h.chunk_hi),
         chunk_size=int(h.chunk_size))

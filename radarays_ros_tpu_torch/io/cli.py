@@ -529,11 +529,14 @@ def cmd_render(args) -> int:
 
 
 def cmd_prime_cache(args) -> int:
-    """Build + persist a mesh's host build so later runs start warm: the
-    SAH ordering and planes of a ~1M-triangle scene take many seconds of
-    NumPy; a cached start is one np.load (geom/cache.py). --force removes
-    the entry and builds it anew."""
+    """Build + persist a mesh's host build so later runs start warm: a
+    cached start is one np.load (geom/cache.py). --force removes the entry
+    and builds it anew. Prints the builder (native or numpy) and the
+    seconds of each stage: the ordering, the planes and chunk AABBs, the
+    device tables (coef and fetch, which every upload makes again from the
+    entry) and the store."""
     from radarays_ros_tpu_torch.geom import cache as scache
+    from radarays_ros_tpu_torch.geom.scene import device_tables
 
     scene = _load_scene(args)
     key = scache.scene_cache_key(scene.verts, scene.obj_ids,
@@ -545,16 +548,24 @@ def cmd_prime_cache(args) -> int:
                   f"({path.stat().st_size / 1e9:.2f} GB)")
             return 0
         path.unlink()
+    stages = {}
     t0 = time.perf_counter()
-    host = scene.host_arrays(cache=True)
+    host = scene.host_arrays(cache=True, stages=stages)
     dt = time.perf_counter() - t0
     if not path.exists():
         print(f"built tables in {dt:.1f}s but the cache entry was not "
               f"written (disk full / read-only cache dir?)", file=sys.stderr)
         return 1
+    t0 = time.perf_counter()
+    device_tables(host)
+    stages["tables_s"] = time.perf_counter() - t0
     print(f"primed {scene.n_triangles} triangles "
           f"({host.chunk_lo.shape[0]} chunks) in {dt:.1f}s -> {path} "
           f"({path.stat().st_size / 1e9:.2f} GB)")
+    print(f"builder {stages['builder']} ({stages['variant']}): ordering "
+          f"{stages['order_s']:.3f} s, planes and AABBs "
+          f"{stages['planes_s']:.3f} s, coef and fetch tables "
+          f"{stages['tables_s']:.3f} s, store {stages['store_s']:.3f} s")
     return 0
 
 

@@ -4,6 +4,7 @@
                           (RadarMaterial.msg: velocity, ambient, diffuse,
                           specular per material).
   * `RadarParams`      — materials + object->material map + beam width.
+  * `AmbientNoiseParams` — radar_types.h:123-131 defaults.
   * `RadarModelConfig` — a copy of the reference's frozen dataclass with the
                           same field names and defaults (the reference
                           module imports jax and cannot be imported here).
@@ -89,6 +90,18 @@ def params_from_numpy(velocity, ambient, diffuse, specular, object_materials,
         Materials(f32(velocity), f32(ambient), f32(diffuse), f32(specular)),
         torch.as_tensor(np.array(object_materials, np.int32), device=device),
         f32(beam_width).reshape(()))
+
+
+@dataclasses.dataclass(frozen=True)
+class AmbientNoiseParams:
+    """Defaults of radar_types.h:123-131 (used by the reference GPU path)."""
+
+    noise_at_signal_0: float = 0.1
+    noise_at_signal_1: float = 0.03
+    noise_energy_min: float = 0.05
+    noise_energy_max: float = 0.08
+    noise_energy_loss: float = 0.05
+    resolution: float = 0.0595238
 
 
 @dataclasses.dataclass(frozen=True)

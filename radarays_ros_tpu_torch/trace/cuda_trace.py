@@ -55,6 +55,15 @@ _SG = 32          # chunks per coarse group of the hierarchical prep
 _ELEMS = 1 << 25  # element budget of one plain-version temporary
 
 
+def _check_index_width(n_triangles: int, n_rays: int) -> None:
+    """The kernels take triangle indices and counts as 32-bit ints (row
+    offsets are 64-bit): refuse a scene or a ray set they cannot index."""
+    if max(n_triangles, n_rays) >= 2**31:
+        raise ValueError(f"{n_triangles} triangles, {n_rays} rays: the trace "
+                         "kernels index both with 32-bit ints (at most "
+                         f"{2**31 - 1})")
+
+
 def _auto_prep_group(n_chunks: int) -> int:
     """Chunks per culling supergroup: 1 up to 12288 chunks (~3M triangles
     at chunk size 256), then 2/4/8 (the reference's _auto_prep_group;
@@ -440,6 +449,7 @@ def _prep_inputs(scene, origs, dirs, budget, *, ray_block: int, group: int):
     if C % group:
         raise ValueError(f"prep_group {group} must divide the {C} chunks")
     R = origs.shape[0]
+    _check_index_width(scene.n_triangles, R + ray_block)
     dev = origs.device
     pad = (-R) % ray_block
     o = torch.cat([origs, torch.zeros(pad, 3, device=dev)]).contiguous()

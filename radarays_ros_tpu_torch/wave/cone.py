@@ -95,6 +95,16 @@ def sample_cone_offsets(gen: torch.Generator, width, n_samples: int,
                         width, sample_dist, p_in_cone)
 
 
+def sample_cone_dirs(gen: torch.Generator, mean_dir, width, n_samples: int,
+                     sample_dist: int, p_in_cone) -> torch.Tensor:
+    """(n_samples, 3) directions in a cone around mean_dir, drawn from `gen`
+    on the generator's device (the reference's dirs-only variant,
+    radar_algorithms.cpp:296-337); `cone_dirs` is its form with the draws
+    given."""
+    return cone_dirs(*sample_cone_draws(gen, n_samples, sample_dist),
+                     mean_dir, width, sample_dist, p_in_cone)
+
+
 def sample_cone_local(gen: torch.Generator, width, n_samples: int,
                       sample_dist: int, p_in_cone) -> torch.Tensor:
     """(n_samples, 3) beam-frame directions around +x (radar_algorithms.cpp
@@ -108,6 +118,6 @@ def sample_cone_mean(gen: torch.Generator, mean_dir, width, n_samples: int,
     """mean_dir followed by n_samples - 1 random cone directions around it
     (the debug beam's sampler, radar_algorithms.cpp:339-385)."""
     mean = torch.as_tensor(mean_dir, dtype=torch.float32, device=gen.device)
-    rest = cone_dirs(*sample_cone_draws(gen, n_samples - 1, sample_dist),
-                     mean, width, sample_dist, p_in_cone)
+    rest = sample_cone_dirs(gen, mean, width, n_samples - 1, sample_dist,
+                            p_in_cone)
     return torch.cat([mean[None, :], rest], dim=0)

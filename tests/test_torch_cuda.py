@@ -84,11 +84,13 @@ def _kernels_equal_plain(scene, o, d, bud, rb, group):
 @pytest.mark.parametrize("rb,group,lanes", [
     (2048, 1, "fan"), (768, 1, "fan"), (128, 1, "fan"),
     (2048, 1, "dead_sky"), (768, 1, "dead_sky"), (128, 1, "dead_sky"),
-    (2048, 2, "dead_sky")])
+    (2048, 2, "dead_sky"), (2048, 4, "fan"), (2048, 4, "dead_sky")])
 def test_prep_and_sweep_kernels_equal_plain(scene, dev, rb, group, lanes):
     """K3, K2 (or K4) and K1 bit for bit for the split CTAs of every block
     width; "dead_sky" lanes include budget-0 (dead) lanes, whole dead
-    groups and steep sky rays, and group 2 takes supergroups of 2 chunks."""
+    groups and steep sky rays, and groups 2 and 4 take supergroups of 2
+    and 4 chunks (the auto group of scenes above 12,288 and 24,576
+    chunks)."""
     o, d, bud = _fan(8192 + 77, dev, seed=0 if lanes == "fan" else 4)
     if lanes == "dead_sky":
         d[::7, 2] = 0.9

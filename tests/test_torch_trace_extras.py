@@ -213,6 +213,10 @@ def test_plane_tables_bit_identical_to_host_build():
     po, pd = plane_tables(torch.from_numpy(h.verts))
     np.testing.assert_array_equal(po.numpy(), h.planes_o)
     np.testing.assert_array_equal(pd.numpy(), h.planes_o[:, :3])
+    # bit for bit: the ground's and the boxes' feet give -0 offsets
+    assert (h.planes_o[:, 3].view(np.uint32) == 0x80000000).any()
+    np.testing.assert_array_equal(po.numpy().view(np.uint32),
+                                  h.planes_o.view(np.uint32))
 
 
 def _fan(n, seed):
