@@ -130,7 +130,7 @@ Phases (one line of figures each; any failure raises and exits non-zero):
      950, seed=7), 9,961,472 triangles in 38,912 chunks, traced with the
      auto prep group of 4 chunks (9,728 supergroups, 10 K3 words a tile) —
      a. the cold start through the command line: the scene as a binary PLY,
-        `prime-cache` into a temporary RADARAYS_SCENE_CACHE (the builder and
+        `prime-cache` into this run's RADARAYS_SCENE_CACHE (the builder and
         each stage's seconds, the entry's GB), again ("already primed"),
         the warm load bit-equal to the cold build, the host's peak RSS;
      b. the host build of phase 5's 1M scene by the C++ library and by
@@ -143,7 +143,27 @@ Phases (one line of figures each; any failure raises and exits non-zero):
         (equal hit and obj_id, t and normals within 1e-4);
      e. bounce 1's rays at prep group 1 against group 4: equal hits and
         objects, K1-K3 bitwise against their plain versions at both, and
-        their times and bounds (in phase 10).
+        their times and bounds (in phase 10);
+ 13. the bench twins (radarays_ros_tpu_torch/bench/), run last, each as a
+     user runs it — `python -m radarays_ros_tpu_torch.bench.<name>` in a
+     process of its own with this run's environment and scene cache
+     (where phase 12 left the 10M build) — and their JSON lines checked
+     (every time and rate finite and above 0, the card named, parity
+     exact, the kernels of each path launched: K1, K2, K3, K5 at 1M and
+     10M, K1, K4, K5 at 10k, K5's backward in the fit, whose start
+     gradient must be finite and nonzero): headline (the 1M line, the 10k
+     and 10M companions in its details), engines --saturated,
+     profile_frame, opti_scale, multichip on 2 gloo ranks sharing the
+     card, sweep_kernel_ab (the SAH order at chunk size 256), order_ab
+     --proxy and --hw for the median order, chunksize_ab --hw at 128, 384
+     and 512 (a size refused although K1's stages fit the card fails the
+     run) and make_demo (its PNGs read back); then the twins' shapes
+     through the kernels and through the plain versions: a batch of 20
+     frames with explicit random inputs at 1M (chunk sizes 128, 256, 384
+     and 512), 10k and 10M (run after phase 12, while its scene is
+     resident), bit-identical, and one loss and gradient of opti_scale's
+     fit (as phase 7's, with K5, its backward and K4 bitwise at the fit's
+     shapes). Each twin's seconds.
 A kernel's time (ms) is its mean device time per launch from
 torch.profiler's CUDA activity over a loop of wrapper calls (K3's and K4's
 with the window's other device work: K3's memset that zeroes its words, an
@@ -168,7 +188,9 @@ steps) and per batch (per step for the backward); ms, wrapper_ms, plain_ms
 and bound_ms per launch averaged over a batch's launches, ms_by_bounce; the
 largest error; bound_by; library_ms (null: no single PyTorch call computes
 these functions) with a library_note saying why; path_10m, the same
-figures from phase 12c for K1, K2, K3 and K5 (null for the others). Details
+figures from phase 12c for K1, K2, K3 and K5 (null for the others);
+launches_per_batch_of_20, the launches a batch of 20 made in phase 13's
+headline twin at 1M, 10k and 10M (null for a companion it skipped). Details
 also go to chiprun_out/chip_smoke.json.
 
 With --kernel-times the script runs, through the port found under ROOT
@@ -1089,6 +1111,63 @@ def fit_setup(device):
             tuple(torch.stack(d) for d in zip(*draws)), pv)
 
 
+def fit_vs_plain(st, start, cfg, poses, draws, targets, pv,
+                 reps: int) -> dict:
+    """One loss and gradient of a fit's objective at `start` through the
+    kernels and through the plain versions (the loss bitwise, the gradient
+    within 1e-5 of its largest entry: autograd of the plain binning sums
+    in another order than K5's backward), then K5, K5's backward and K4
+    bitwise against their plain versions at the fit's shapes (the start's
+    signals, the first pass's rays), timed over `reps` calls."""
+    import torch
+
+    from radarays_ros_tpu_torch.opti.optimize import (default_objective,
+                                                      step_loss_fn)
+    from radarays_ros_tpu_torch.sim import pipeline as P
+    from radarays_ros_tpu_torch.trace import cuda_trace as CT
+
+    info = {}
+
+    def loss_grad(c):
+        obj = default_objective(st, c, poses, targets, cone_draws=draws)
+        step_loss, _, to_z = step_loss_fn(obj, start, pv)
+        z = to_z(pv.to_vec(start)).requires_grad_(True)
+        loss = step_loss(z)
+        loss.backward()
+        return loss.detach(), z.grad
+
+    lk, gk = loss_grad(cfg)
+    lp, gp = loss_grad(cfg.replace(trace_engine="sweep", draw_method="plain"))
+    g_err = float((gk - gp).abs().max())
+    info.update(loss_kernel=float(lk), loss_plain=float(lp),
+                loss_bitwise=bool(torch.equal(lk, lp)),
+                grad_kernel=gk.tolist(), grad_plain=gp.tolist(),
+                grad_max_abs_err=g_err)
+    check(bool(torch.isfinite(gk).all()), f"non-finite gradient {gk}")
+    check(bool(gk.abs().max() > 0), "all-zero gradient")
+    check(info["loss_bitwise"], f"loss kernel {lk} vs plain {lp}")
+    check(g_err <= 1e-5 * float(gp.abs().max()),
+          f"gradient kernel vs plain: max abs error {g_err}")
+
+    # K5 forward and backward at the fit's shapes (the start's signals)
+    with torch.no_grad():
+        waves, sensor_pos = P.start_waves(start, cfg, poses,
+                                          cone_draws=draws,
+                                          device=st.device)
+    cell, s = bin_inputs(st, start, cfg, waves, sensor_pos)
+    w, mode = cfg.denoiser()
+    k5 = bin_vs_plain(cell, s, w, mode, cfg.n_cells, reps=reps)
+    # and K4 on the first pass's rays and budgets, in ray-major order
+    o, _, inv_d, bud, lo, hi, _ = CT._prep_inputs(
+        st, ray_major(waves.orig), ray_major(waves.dir),
+        ray_major(P.trace_budget(cfg, waves)),
+        ray_block=cfg.trace_ray_block, group=1)
+    k4 = flat_vs_plain(lo, hi, o, inv_d, bud, cfg.trace_ray_block, reps)[0]
+    info["kernels_fit_shapes"] = dict(k5, prep_flat=k4, rows=cell.shape[0],
+                                      signals_per_row=cell.shape[1])
+    return info
+
+
 def fit_phase(dev) -> dict:
     """Phase 7: targets at the true parameters, 60 Adam steps around a
     checkpoint save and load, launch counts, PSNR, and one loss and
@@ -1101,8 +1180,7 @@ def fit_phase(dev) -> dict:
     from radarays_ros_tpu_torch.opti.checkpoint import (load_checkpoint,
                                                         save_checkpoint)
     from radarays_ros_tpu_torch.opti.optimize import (default_objective,
-                                                      optimize_gradient,
-                                                      step_loss_fn)
+                                                      optimize_gradient)
     from radarays_ros_tpu_torch.sim import pipeline as P
 
     t0 = time.perf_counter()
@@ -1158,45 +1236,8 @@ def fit_phase(dev) -> dict:
     check(info["final_psnr_db"] > info["start_psnr_db"],
           "the fit's PSNR did not rise")
 
-    # one loss and gradient through the kernels and the plain versions
-    def loss_grad(c):
-        obj = default_objective(st, c, poses, targets, cone_draws=draws)
-        step_loss, _, to_z = step_loss_fn(obj, start, pv)
-        z = to_z(pv.to_vec(start)).requires_grad_(True)
-        loss = step_loss(z)
-        loss.backward()
-        return loss.detach(), z.grad
-
-    lk, gk = loss_grad(cfg)
-    lp, gp = loss_grad(cfg.replace(trace_engine="sweep", draw_method="plain"))
-    g_err = float((gk - gp).abs().max())
-    info.update(loss_kernel=float(lk), loss_plain=float(lp),
-                loss_bitwise=bool(torch.equal(lk, lp)),
-                grad_kernel=gk.tolist(), grad_plain=gp.tolist(),
-                grad_max_abs_err=g_err)
-    check(bool(torch.isfinite(gk).all()), f"non-finite gradient {gk}")
-    check(bool(gk.abs().max() > 0), "all-zero gradient")
-    check(info["loss_bitwise"], f"loss kernel {lk} vs plain {lp}")
-    check(g_err <= 1e-5 * float(gp.abs().max()),
-          f"gradient kernel vs plain: max abs error {g_err}")
-
-    # K5 forward and backward at the fit's shapes (the start's signals)
-    with torch.no_grad():
-        waves, sensor_pos = P.start_waves(start, cfg, poses,
-                                          cone_draws=draws, device=dev)
-    cell, s = bin_inputs(st, start, cfg, waves, sensor_pos)
-    w, mode = cfg.denoiser()
-    k5 = bin_vs_plain(cell, s, w, mode, cfg.n_cells, reps=20)
-    # and K4 on the first pass's rays and budgets, in ray-major order
-    from radarays_ros_tpu_torch.trace import cuda_trace as CT
-
-    o, _, inv_d, bud, lo, hi, _ = CT._prep_inputs(
-        st, ray_major(waves.orig), ray_major(waves.dir),
-        ray_major(P.trace_budget(cfg, waves)),
-        ray_block=cfg.trace_ray_block, group=1)
-    k4 = flat_vs_plain(lo, hi, o, inv_d, bud, cfg.trace_ray_block, 20)[0]
-    info["kernels_fit_shapes"] = dict(k5, prep_flat=k4, rows=cell.shape[0],
-                                      signals_per_row=cell.shape[1])
+    info.update(fit_vs_plain(st, start, cfg, poses, draws, targets, pv,
+                             reps=20))
     long = ("grad_kernel", "grad_plain", "history_psnr_db")
     log(f"[7 fit] {json.dumps({k: v for k, v in info.items() if k not in long})}")
     return info
@@ -1497,37 +1538,6 @@ def cli_phase(dev, scene5, host5, cfg, info5, scene10) -> dict:
     return info
 
 
-def saturated_sets(st) -> dict:
-    """The ray sets of benchmarks/engines.py:51-68 (each drawn from
-    default_rng(0)), SAT_RAYS rays on st's device: the coherent fan
-    (400 azimuths from (0, 0, 2)) and the incoherent set (random
-    directions from random origins in the middle 80 % of the bounding box
-    of the scene's real chunks)."""
-    import numpy as np
-    import torch
-
-    dev = st.device
-    rng = np.random.default_rng(0)
-    A = 400
-    S = SAT_RAYS // A
-    az = np.repeat(np.linspace(0, 2 * np.pi, A, endpoint=False), S)
-    el = np.tile(rng.normal(0, 0.06, S), A)
-    d = np.stack([np.cos(el) * np.cos(az), np.cos(el) * np.sin(az),
-                  np.sin(el)], -1).astype(np.float32)
-    o = np.broadcast_to(np.array([0, 0, 2.0], np.float32), d.shape).copy()
-    sets = {"coherent": (o, d)}
-    rng = np.random.default_rng(0)
-    d = rng.normal(size=(SAT_RAYS, 3))
-    d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    lo_c, hi_c = st.chunk_lo.cpu().numpy(), st.chunk_hi.cpu().numpy()
-    real = hi_c[:, 0] < 1e7                     # not the far padding chunks
-    lo, hi = lo_c[real].min(0), hi_c[real].max(0)
-    o = lo + rng.uniform(0.1, 0.9, size=(SAT_RAYS, 3)) * (hi - lo)
-    sets["incoherent"] = (o.astype(np.float32), d.astype(np.float32))
-    return {k: tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                     for a in v) for k, v in sets.items()}
-
-
 def sweep_bounds(st, o, d, bud, rb: int) -> dict:
     """The bounds of K3, K2 and K1 (bound()) on one sweep_winners call's
     rays, counted as kernels_vs_plain counts them, from the kernels'
@@ -1639,7 +1649,12 @@ def saturated_phase(st, smi: str) -> dict:
     from radarays_ros_tpu_torch.trace import cuda_trace as CT
     from radarays_ros_tpu_torch.trace.api import trace
 
-    rays = saturated_sets(st)
+    from radarays_ros_tpu_torch.bench import common as BC
+    from radarays_ros_tpu_torch.bench.engines import incoherent_rays
+
+    # the ray sets of benchmarks/engines.py:51-68, each from default_rng(0)
+    rays = {"coherent": BC.on(st.device, *BC.radar_fan(SAT_RAYS)),
+            "incoherent": BC.on(st.device, *incoherent_rays(st, SAT_RAYS))}
     out, res = {}, {}
     for tag, which, kw in SAT_SETS:
         t_set = time.perf_counter()
@@ -2031,17 +2046,18 @@ def native_vs_numpy(scene, host) -> dict:
     return out
 
 
-def huge_phase(dev, smi: str, scene5, host5) -> tuple:
+def huge_phase(dev, smi: str, scene5, host5, cache_dir: str) -> tuple:
     """Phase 12, bench.py's huge_10m scale (make_urban_scene(830000, 950,
     seed=7), the KAIST preset, prep group auto = 4): a. the cold start
-    through the CLI (the scene as a binary PLY, prime-cache into a
-    temporary cache, again: already primed; the warm load bit-equal to the
-    cold build), the host's peak RSS; b. native_vs_numpy on phase 5's 1M
-    scene; c. frames_phase at 10M, with the resident scene and peak device
-    MiB; d. kernel against brute on 2,048 rays of the fan; e. the bounce-1
-    rays of c at prep group 1 against the auto group 4 (hits and objects
-    equal; K1-K3 against their plain versions, their times queued).
-    Returns (details, the scene tensors, c's launches, its trace kernels by
+    through the CLI (the scene as a binary PLY, prime-cache into the
+    run's cache cache_dir, where phase 13's headline twin finds it; again:
+    already primed; the warm load bit-equal to the cold build), the host's
+    peak RSS; b. native_vs_numpy on phase 5's 1M scene; c. frames_phase
+    at 10M, with the resident scene and peak device MiB; d. kernel
+    against brute on 2,048 rays of the fan; e. the bounce-1 rays of c at
+    prep group 1 against the auto group 4 (hits and objects equal; K1-K3
+    against their plain versions, their times queued). Returns (details,
+    (the scene tensors, params, cfg), c's launches, its trace kernels by
     bounce, its K5 rows, e's kernels by group)."""
     import tempfile
 
@@ -2064,7 +2080,7 @@ def huge_phase(dev, smi: str, scene5, host5) -> tuple:
     # ---- 12a. the cold start through the command line
     old_cache = os.environ.get("RADARAYS_SCENE_CACHE")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_10m_") as tmp:
-        os.environ["RADARAYS_SCENE_CACHE"] = os.path.join(tmp, "cache")
+        os.environ["RADARAYS_SCENE_CACHE"] = cache_dir
         try:
             ply = os.path.join(tmp, "urban_10m.ply")
             t0 = time.perf_counter()
@@ -2178,7 +2194,7 @@ def huge_phase(dev, smi: str, scene5, host5) -> tuple:
     del res, waves0
     info["phase_s"] = time.perf_counter() - t_phase
     log(f"[12 phase] {info['phase_s']:.1f} s")
-    return info, st, launches, bb, k5, groups
+    return info, (st, params, cfg), launches, bb, k5, groups
 
 
 RANKS = 4            # phase 11's ranks, all on the one card
@@ -2608,6 +2624,299 @@ def shard_trace_contract(got, want) -> dict:
                 t_bitwise_on_hits=bool(np.array_equal(t[hit], w_t[hit])))
 
 
+# ---------------------------------------------------------- 13. bench twins
+
+BENCH_BATCH = 20          # the twins' batch (bench.py:189)
+# the kernels each twin's path must launch (K1 sweep, K2 prep_hier, K3
+# coarse_words, K4 prep_flat, K5 bin, K5's backward bin_bwd)
+AT_1M = ("sweep", "prep_hier", "coarse_words", "bin")
+AT_10K = ("sweep", "prep_flat", "bin")
+AB_SIZES = (128, 384, 512)   # chunksize_ab's sizes besides the default 256
+
+
+def twin(name: str, *args, env=None, timeout: float = 600.0) -> tuple:
+    """Run `python -m radarays_ros_tpu_torch.bench.<name> *args` as a user
+    does, from the checkout with this run's environment (and env): its
+    stdout JSON lines, parsed, and its seconds. A twin that fails or prints
+    no JSON line fails the phase."""
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", f"radarays_ros_tpu_torch.bench.{name}",
+         *args], cwd=HERE, capture_output=True, text=True, timeout=timeout,
+        env=dict(os.environ, **(env or {})))
+    seconds = time.perf_counter() - t0
+    check(run.returncode == 0, f"bench twin {name} {' '.join(args)} exited "
+          f"{run.returncode}:\n{run.stderr[-4000:]}")
+    lines = [json.loads(ln) for ln in run.stdout.splitlines()
+             if ln.startswith("{")]
+    check(bool(lines), f"bench twin {name} printed no JSON line")
+    return lines, seconds
+
+
+def positive(rec: dict, *keys) -> None:
+    """Every key of rec is a finite number above 0."""
+    import math
+
+    for k in keys:
+        v = rec.get(k)
+        check(isinstance(v, (int, float)) and math.isfinite(v) and v > 0,
+              f"{k} = {v!r} in {rec}")
+
+
+def launched(rec: dict, kernels, key: str = "kernel_launches") -> None:
+    n = rec[key]
+    check(all(n[k] > 0 for k in kernels),
+          f"launches {n}: {list(kernels)} must each launch")
+
+
+def bitwise_batch(b, expect) -> dict:
+    """One batch of BENCH_BATCH frames on b (a common.Benchmark, or its
+    scene, params and cfg) at the KAIST pose with explicit random inputs,
+    through the kernels and through the plain versions: the frames must be
+    bit-identical, and each kernel in expect launched."""
+    import numpy as np
+    import torch
+
+    from radarays_ros_tpu_torch.bench import common as BC
+    from radarays_ros_tpu_torch.sim import pipeline as P
+    from radarays_ros_tpu_torch.utils.transforms import make_pose
+    from radarays_ros_tpu_torch.wave.cone import sample_cone_draws
+
+    st, params, cfg = b[:3]
+    dev = st.device
+    poses = torch.from_numpy(np.tile(make_pose([0.0, 0.0, 2.0]),
+                                     (BENCH_BATCH, 1)))
+    gen = torch.Generator(dev).manual_seed(20)
+    draws = [sample_cone_draws(gen, cfg.n_samples, cfg.beam_sample_dist)
+             for _ in range(BENCH_BATCH)]
+    kw = dict(cone_draws=tuple(torch.stack(d) for d in zip(*draws)),
+              random_begin=torch.randint(0, 1000, (BENCH_BATCH,
+                                                   cfg.n_angles),
+                                         generator=gen, device=dev))
+    BC.zero_launches()
+    fk = P.simulate_frames(st, params, cfg, poses, **kw)
+    launches = BC.read_launches()
+    fp = P.simulate_frames(st, params, cfg.replace(
+        trace_engine="sweep", draw_method="plain"), poses, **kw)
+    torch.cuda.synchronize()
+    out = dict(frames=BENCH_BATCH, n_triangles=st.n_triangles,
+               chunk_size=st.chunk_size, launches=launches,
+               bitwise=all(torch.equal(x, y) for x, y in zip(fk, fp)),
+               mean_pixel=float(fk.image_u8.float().mean()))
+    check(all(launches[k] > 0 for k in expect),
+          f"launches {launches}: {list(expect)} must each launch")
+    check(out["bitwise"], f"the batch of {BENCH_BATCH} on {st.n_triangles} "
+          f"triangles (chunk size {st.chunk_size}) through the kernels "
+          "differs from the plain versions")
+    check(out["mean_pixel"] > 0, "empty frames")
+    return out
+
+
+def bench_phase(dev, smi: str, cache_dir: str, bits_10m: dict) -> dict:
+    """Phase 13: every bench twin run as a user runs it, in a process of
+    its own, with the scene cache of this run (phase 12's 10M build is
+    there); then the twins' shapes through the kernels and the plain
+    versions: a batch of 20 at 1M (chunk sizes 128, 256, 384, 512) and at
+    10k (bits_10m: the 10M batch, run while phase 12's scene was
+    resident), and one loss and gradient of opti_scale's fit."""
+    import math
+    import tempfile
+
+    import torch
+
+    from radarays_ros_tpu_torch.bench import common as BC
+    from radarays_ros_tpu_torch.bench import make_demo
+    from radarays_ros_tpu_torch.bench import opti_scale as OS
+    from radarays_ros_tpu_torch.bench.headline import METRIC
+    from radarays_ros_tpu_torch.trace import cuda_trace as CT
+
+    t_phase = time.perf_counter()
+    env = {"RADARAYS_SCENE_CACHE": cache_dir}
+    info, secs = dict(gpu=smi), {}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bench_") as tmp:
+        # a. the headline: one stdout line, the companions in --details
+        path = os.path.join(tmp, "details.json")
+        lines, secs["headline"] = twin("headline", "--details", path,
+                                       env=env, timeout=900)
+        check(len(lines) == 1, f"headline printed {len(lines)} lines")
+        h = lines[0]
+        check(h["metric"] == METRIC and h["unit"] == "Hz"
+              and "vs_baseline" not in h, f"headline keys {sorted(h)}")
+        check(h["parity"]["exact"] is True, f"parity {h['parity']}")
+        x = h["extra"]
+        positive(h, "value")
+        positive(x, "fenced_best_hz", "fenced_trimmed_median_hz",
+                 "mrays_per_sec", "rays_per_frame", "n_triangles")
+        check(x["device"] == smi and x["batch"] == BENCH_BATCH
+              and x["trace_engine"] == "kernel", f"headline extra {x}")
+        launched(x, AT_1M)
+        with open(path) as f:
+            details = json.load(f)
+        small, huge = details["small_10k"], details["huge_10m"]
+        check("skipped" not in small, f"10k companion: {small}")
+        positive(small, "sustained_hz", "best_hz", "trimmed_median_hz")
+        launched(small, AT_10K)
+        if "skipped" in huge:
+            log(f"[13 headline] huge_10m skipped: {huge['skipped']}")
+        else:
+            positive(huge, "sustained_hz", "best_hz", "trimmed_median_hz")
+            launched(huge, AT_1M)
+        info["headline"] = details
+        log(f"[13 headline] {json.dumps(h)}")
+        log("[13 headline companions] " + json.dumps(
+            {k: details[k] for k in ("small_10k", "huge_10m")}))
+
+        # b. the saturated trace suite
+        lines, secs["engines"] = twin("engines", "--saturated", env=env)
+        check(lines[0]["device"] == smi and len(lines) == 5,
+              f"engines lines {lines}")
+        for r in lines[1:]:
+            positive(r, "mrays_per_sec", "ms", "hit_rate", "peak_mib")
+            launched(r, ("sweep", "prep_hier", "coarse_words"))
+        info["engines"] = lines
+
+        # c. the profile of one batch of 20
+        lines, secs["profile_frame"] = twin("profile_frame", env=env)
+        p = lines[0]
+        positive(p, "device_total_ms", "device_window_ms", "kernels",
+                 "checksum")
+        check(0.0 <= p["device_idle_share"] < 1.0 and p["top_groups"]
+              and p["device"] == smi and p["bin_calls"] == 1,
+              f"profile {p}")
+        launched(p, AT_1M)
+        info["profile_frame"] = p
+
+        # d. the fit, gradient and black-box, at the reference's defaults;
+        # the gradient Adam starts from must be finite and nonzero
+        lines, secs["opti_scale"] = twin(
+            "opti_scale", "--checkpoint", os.path.join(tmp, "ck.npz"),
+            env=env)
+        check(len(lines) == 4 and lines[0]["device"] == smi,
+              f"opti_scale lines {lines}")
+        g, bb = lines[2], lines[3]
+        check(g["bench"] == "opti_gradient" and g["resumed_from_step"] == 30
+              and bb["bench"] == "opti_black_box", f"{g} {bb}")
+        positive(g, "final_psnr_db", "wall_s", "steps_per_s",
+                 "start_grad_norm")
+        check(all(map(math.isfinite, g["start_grad"]))
+              and math.isfinite(g["beam_width_central_difference"]),
+              f"start gradient {g['start_grad']}, beam width central "
+              f"difference {g['beam_width_central_difference']}")
+        positive(bb, "final_psnr_db", "wall_s", "evaluations")
+        launched(g, ("sweep", "prep_flat", "bin", "bin_bwd"))
+        info["opti_scale"] = lines
+        log("[13 opti_scale start gradient] " + json.dumps(
+            {k: g[k] for k in ("start_grad", "start_grad_norm",
+                               "beam_width_central_difference")}))
+
+        # e. the layouts, 2 gloo ranks sharing the card
+        lines, secs["multichip"] = twin("multichip", "--ranks", "2",
+                                        env=env)
+        check(len(lines) == 3 and all(r["ranks_share_one_card"] is True
+                                      and r["device"] == smi
+                                      for r in lines), f"multichip {lines}")
+        for r in lines[1:]:
+            positive(r, "best_hz", "med_hz")
+            launched(r, ("sweep", "bin"), "kernel_launches_rank0")
+        info["multichip"] = lines
+
+        # f. the sweep kernel A/B stages: the SAH order at chunk size 256,
+        # the row the two A/Bs below are read against
+        lines, secs["sweep_kernel_ab"] = twin("sweep_kernel_ab", env=env)
+        check(lines[0]["order_variant"] == "sah", f"env {lines[0]}")
+        info["sweep_kernel_ab"] = lines
+        ab_checks(lines, smi)
+
+        # g. leaf orders: the host proxy, then the median order's stages
+        lines, secs["order_ab_proxy"] = twin("order_ab", "--proxy", env=env)
+        check([r["variant"] for r in lines] == ["median", "sah"],
+              f"order_ab proxy {lines}")
+        for r in lines:
+            positive(r, "mean_overlaps_per_ray", "total_overlaps",
+                     "n_chunks")
+        info["order_ab_proxy"] = lines
+        lines, secs["order_ab_hw"] = twin(
+            "order_ab", "--hw", "--variants", "median", env=env)
+        check({r["variant"] for r in lines} == {"median"}
+              and lines[0]["order_variant"] == "median",
+              f"order_ab --hw lines {lines}")
+        ab_checks(lines, smi)
+        info["order_ab_hw"] = lines
+
+        # h. chunk sizes on the card (256 is sweep_kernel_ab's row); a
+        # size is refused only when K1's stages exceed the card's limit
+        lines, secs["chunksize_ab"] = twin(
+            "chunksize_ab", "--hw", "--sizes", ",".join(map(str, AB_SIZES)),
+            env=env)
+        info["chunksize_ab"] = lines
+        limit = CT.sweep_smem_limit(dev.index)
+        for tc in AB_SIZES:
+            mine = [r for r in lines if r.get("chunk_size") == tc]
+            if mine and mine[0]["stage"] == "refused":
+                check(CT.sweep_smem_bytes(tc) > limit,
+                      f"chunk size {tc} ({CT.sweep_smem_bytes(tc)} bytes of "
+                      f"K1 stages, the card's limit {limit}) was refused: "
+                      f"{mine[0]['refused']}")
+                log(f"[13 chunksize_ab] {tc} refused: {mine[0]['refused']}")
+                continue
+            ab_checks([lines[0]] + mine, smi)
+
+        # i. the demo frame into a temporary directory
+        out = os.path.join(tmp, "demo")
+        lines, secs["make_demo"] = twin("make_demo", "--out", out, env=env)
+        dm = lines[0]
+        shapes = [make_demo.read_back(f).shape for f in dm["files"]]
+        check(shapes == [(3424, 400), (800, 800, 3)] and dm["device"] == smi
+              and "panel" in dm, f"make_demo {dm} {shapes}")
+        positive(dm, "frame_s")
+        info["make_demo"] = dict(dm, shapes=shapes)
+
+    # j. the twins' shapes, kernels against plain versions, bit for bit
+    t0 = time.perf_counter()
+    bits = {"10m": bits_10m}
+    with BC.environ(RADARAYS_SCENE_CACHE=cache_dir):
+        for tc in (256, *AB_SIZES):
+            bits[f"1m_chunk_{tc}"] = bitwise_batch(
+                BC.build_benchmark(83000, chunk_size=tc, device=dev), AT_1M)
+        bits["10k"] = bitwise_batch(BC.build_benchmark(800, device=dev),
+                                    AT_10K)
+    info["bitwise_batch20"] = bits
+    secs["bitwise_batch20"] = time.perf_counter() - t0
+    log(f"[13 bitwise batch of 20, kernels vs plain] {json.dumps(bits)}")
+    t0 = time.perf_counter()
+    fs = OS.fit_setup(200, 3, dev)
+    fit = fit_vs_plain(fs["scene"], fs["start"], fs["cfg"], fs["poses"],
+                       fs["cone_draws"], fs["targets"], fs["pv"], reps=3)
+    info["opti_scale_vs_plain"] = fit
+    secs["opti_scale_vs_plain"] = time.perf_counter() - t0
+    log("[13 opti_scale step, kernels vs plain] " + json.dumps(
+        {k: fit[k] for k in ("loss_kernel", "loss_plain", "loss_bitwise",
+                             "grad_kernel", "grad_plain",
+                             "grad_max_abs_err")}))
+    info["seconds"] = secs
+    info["phase_s"] = time.perf_counter() - t_phase
+    log(f"[13 bench twins] {json.dumps(secs)}")
+    log(f"[13 phase] {info['phase_s']:.1f} s")
+    return info
+
+
+def ab_checks(lines: list, smi: str) -> None:
+    """The lines of sweep_kernel_ab's stages (an env line, then parity,
+    trace_marginal and frame_1m): the card named, parity exact, every
+    time and rate above 0, K1 launched."""
+    stages = {r["stage"]: r for r in lines}
+    check(stages["env"]["device"] == smi and set(stages) == {
+        "env", "parity", "trace_marginal", "frame_1m"}, f"A/B lines {lines}")
+    check(stages["parity"]["exact"] is True, f"parity {stages['parity']}")
+    positive(stages["trace_marginal"], "t1_ms", "t5_ms",
+             "marginal_trace_ms", "mrays_per_sec_marginal")
+    positive(stages["frame_1m"], "sustained_hz", "best_hz",
+             "trimmed_median_hz")
+    launched(stages["trace_marginal"], ("sweep",))
+    launched(stages["frame_1m"], AT_1M)
+
+
 def kernel_times(dev, smi: str, phases=("5", "6")) -> dict:
     """The --kernel-times run, through the port that sys.path finds first
     (main puts ROOT there): for each frame path in phases (phase 5's
@@ -2673,7 +2982,23 @@ def main() -> int:
             torch.device("cuda"), smi, sys.argv[3:] or ("5", "6"))}),
             flush=True)
         return 0
+    dev = torch.device("cuda")
+    # the scene cache of this run: phase 12 primes the 10M scene into it,
+    # phase 13's twins find their builds there
+    import shutil
+    import tempfile
+
+    run_cache = tempfile.mkdtemp(prefix="chip_smoke_cache_")
+    try:
+        return run(dev, run_cache)
+    finally:
+        shutil.rmtree(run_cache, ignore_errors=True)
+
+
+def run(dev, run_cache: str) -> int:
+    """Phases 1-13 and the result lines (main's body)."""
     import numpy as np
+    import torch
 
     import radarays_ros_tpu_torch  # noqa: F401  (sets the TF32 switches)
     from radarays_ros_tpu_torch import cuda_build
@@ -2682,7 +3007,6 @@ def main() -> int:
     from radarays_ros_tpu_torch.sim.config import RadarModelConfig
     from radarays_ros_tpu_torch.trace.api import trace
 
-    dev = torch.device("cuda")
     details = {}
     t_main = time.perf_counter()
 
@@ -2827,8 +3151,8 @@ def main() -> int:
         f"{json.dumps(details['phase_9_parts_s'])}")
 
     # ---- 12. bench.py's ~10M-triangle scale, before the profiler
-    huge, st12, launches12, bb12, k5_12, groups12 = huge_phase(
-        dev, smi, scene5, host5)
+    huge, b12, launches12, bb12, k5_12, groups12 = huge_phase(
+        dev, smi, scene5, host5, run_cache)
     details["huge_10m"] = huge
     del scene5
 
@@ -2888,8 +3212,13 @@ def main() -> int:
     log(f"[10 kernel times, phase 12e, prep group 1 vs 4] "
         f"{json.dumps(groups)}")
     details["profiler_phase_s"] = time.perf_counter() - t0
-    # the 10M scene's tensors go before the ranks load phase 5's build
-    del st12, bb12, groups12
+    # phase 13's batch of 20 at 10M, kernels against plain versions, while
+    # the scene is resident; its tensors go before the ranks load phase
+    # 5's build
+    t0 = time.perf_counter()
+    bits_10m = dict(bitwise_batch(b12, AT_1M),
+                    seconds=time.perf_counter() - t0)
+    del b12, bb12, groups12
     import gc
 
     gc.collect()
@@ -2898,6 +3227,18 @@ def main() -> int:
     # ---- 11. the multi-device layouts, ranks sharing the card
     details["layouts"] = layouts_phase(dev, host5, n_objects5, cfg5, smi)
     del host5
+
+    # ---- 13. the bench twins, as a user runs them
+    gc.collect()
+    details["bench"] = bench_phase(dev, smi, run_cache, bits_10m)
+    bench = details["bench"]["headline"]
+    per_batch = {
+        tag: {k: n / r["timed_batches"] for k, n in
+              r["kernel_launches"].items()} if "kernel_launches" in r
+        else None
+        for tag, r in (("1m", bench["headline"]["extra"]),
+                       ("10k", bench["small_10k"]),
+                       ("10m", bench["huge_10m"]))}
 
     source = {"sweep": "radarays_ros_tpu_torch/csrc/sweep.cu",
               "prep_hier": "radarays_ros_tpu_torch/csrc/prep.cu",
@@ -2945,7 +3286,10 @@ def main() -> int:
             ms_by_bounce=m.get("ms_by_bounce", [m["ms"]]),
             plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
             bound_by=m["bound_by"], library_ms=None,
-            library_note=LIBRARY_NOTE[k], path_10m=at_10m))
+            library_note=LIBRARY_NOTE[k], path_10m=at_10m,
+            launches_per_batch_of_20={
+                tag: None if v is None else v[k]
+                for tag, v in per_batch.items()}))
     details["kernels"] = table
     details["total_s"] = time.perf_counter() - t_main
     log(f"[total] {details['total_s']:.1f} s from phase 1 to the table")

@@ -42,6 +42,7 @@ card the two agree bit for bit.
 
 from __future__ import annotations
 
+import functools
 import warnings
 
 import numpy as np
@@ -384,6 +385,23 @@ def _sweep_plain(nvisit, order, entry, o, d, t_last, coef, fetch, *,
     return best_t, best_i.to(torch.int32), rows
 
 
+class ChunkSizeRefused(ValueError):
+    """A chunk size K1 cannot stage on this card: raised before launch."""
+
+
+def sweep_smem_bytes(tc: int) -> int:
+    """K1's dynamic shared memory a CTA: two stages of tc x 22 floats and
+    their barriers (sweep.cu:rr_sweep)."""
+    return 2 * tc * 22 * 4 + 16
+
+
+@functools.lru_cache(maxsize=None)
+def sweep_smem_limit(index) -> int:
+    """The most dynamic shared memory a CTA may ask for on card `index`."""
+    return torch.cuda.get_device_properties(
+        index or 0).shared_memory_per_block_optin
+
+
 def sweep(nvisit, order, entry, o, d, t_last, coef, fetch, *, tc: int,
           group: int, t_min: float):
     """K1 wrapper: plain version on CPU tensors, the CUDA kernel rr_sweep
@@ -408,6 +426,11 @@ def sweep(nvisit, order, entry, o, d, t_last, coef, fetch, *, tc: int,
     if coef.data_ptr() % 16:
         raise ValueError("sweep: coef must be 16-byte aligned (its chunks "
                          "are staged by TMA bulk copies)")
+    smem, limit = sweep_smem_bytes(tc), sweep_smem_limit(o.device.index)
+    if smem > limit:
+        raise ChunkSizeRefused(f"sweep: chunk size {tc} stages {smem} bytes "
+                               f"of shared memory a CTA; the card gives at "
+                               f"most {limit}")
     best_t = torch.empty(Rp, dtype=torch.float32, device=o.device)
     best_i = torch.empty(Rp, dtype=torch.int32, device=o.device)
     rows = torch.empty(Rp, 16, dtype=torch.float32, device=o.device)

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from radarays_ros_tpu_torch.bench import common as BC
 from radarays_ros_tpu_torch.geom.primitives import make_urban_scene
 from radarays_ros_tpu_torch.geom.scene import Scene
 from radarays_ros_tpu_torch.image.cuda_draw import (_bin_bwd,
@@ -641,3 +642,158 @@ def test_layout_on_card(layout_frames, layout):
         for a, b in zip(got, one):
             np.testing.assert_array_equal(a, b)
     _within_frame_contract(got, cpu[layout])
+
+
+# ------------------------------------------------------- the bench twins
+
+_BENCH_SMALL = dict(n_angles=32, n_cells=1024, resolution=0.1, n_samples=8,
+                    trace_ray_block=256)
+_AT_HIER = ("sweep", "prep_hier", "coarse_words", "bin")
+
+
+def _bench_lines(capsys):
+    import json
+
+    return [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith("{")]
+
+
+def _launched(rec, kernels, key="kernel_launches"):
+    assert all(rec[key][k] > 0 for k in kernels), rec[key]
+
+
+def test_bench_headline_on_card(dev, tmp_path, capsys):
+    from radarays_ros_tpu_torch.bench import headline as H
+
+    d = H.main(["--details", str(tmp_path / "d.json")],
+               headline=dict(n_buildings=16600, extent=140.0),
+               companions=(("small_10k", dict(n_buildings=800)),),
+               cfg_overrides=_BENCH_SMALL,
+               parity_kw=dict(n_buildings=1600, n_rays=40000))
+    (line,) = _bench_lines(capsys)
+    assert line["parity"]["exact"] is True and line["value"] > 0
+    assert line["extra"]["device"].endswith(" W")       # name, power limit
+    _launched(line["extra"], _AT_HIER)
+    _launched(d["small_10k"], ("sweep", "prep_flat", "bin"))
+
+
+def test_bench_engines_on_card(dev, capsys):
+    from radarays_ros_tpu_torch.bench import engines as E
+
+    b = BC.build_benchmark(800, device=dev)
+    o, d = BC.on(dev, *BC.radar_fan(40000, el_std=0.03))
+    res = E.trace_engines(b.scene, o, d, ["brute", "sweep", "kernel", "mxu"],
+                          dev, n=2)
+    want = res["brute"]["result"]
+    for e in ("sweep", "kernel", "mxu"):
+        assert torch.equal(res[e]["result"].hit, want.hit), e
+        assert torch.equal(res[e]["result"].obj_id, want.obj_id), e
+    recs = E.saturated(BC.build_benchmark(16600, 140.0, device=dev).scene,
+                       dev, n_rays=131072)
+    assert len(recs) == 4
+    for r in recs:
+        assert r["mrays_per_sec"] > 0 and r["peak_mib"] > 0
+        _launched(r, ("sweep", "prep_hier", "coarse_words"))
+    capsys.readouterr()
+
+
+def test_bench_profile_frame_on_card(dev, capsys):
+    from radarays_ros_tpu_torch.bench import profile_frame as PF
+
+    p = PF.main(["--buildings", "16600"], cfg_overrides=_BENCH_SMALL)
+    assert 0.0 <= p["device_idle_share"] < 1.0 and p["kernels"] > 0
+    # K1's launches are grouped under its own name
+    assert "sweep_kernel" in [g["op"] for g in p["top_groups"]]
+    assert p["bin_calls"] == 1
+    _launched(p, _AT_HIER)
+    capsys.readouterr()
+
+
+def test_bench_opti_scale_on_card(dev, tmp_path, capsys):
+    from radarays_ros_tpu_torch.bench import opti_scale as OS
+
+    out = OS.main(["--steps", "4", "--frames", "2", "--checkpoint",
+                   str(tmp_path / "ck.npz")],
+                  cfg_overrides=dict(n_angles=32, n_cells=512, n_samples=4,
+                                     trace_ray_block=256))
+    g = out[2]
+    assert g["resumed_from_step"] == 2 and np.isfinite(g["history"]).all()
+    _launched(g, ("sweep", "prep_flat", "bin", "bin_bwd"))
+    capsys.readouterr()
+
+
+def test_bench_multichip_on_card(dev, capsys):
+    from radarays_ros_tpu_torch.bench import multichip as MC
+
+    out = MC.main(["--ranks", "2", "--iters", "2", "--buildings", "200"])
+    lines = _bench_lines(capsys)
+    assert all(ln["ranks_share_one_card"] is (torch.cuda.device_count() < 2)
+               for ln in lines)
+    assert [ln.get("bench") for ln in lines[1:]] == [
+        "frame_sharded_1d_az", "frame_sharded_2d_az_smp"]
+    for name in ("az", "az_smp"):
+        _launched(out[name], ("sweep", "bin"))
+        assert out[name]["frame"][0].max() > 0
+
+
+@pytest.mark.parametrize("tc", [128, 384, 512])
+def test_bench_ab_stages_on_card_at_chunk_size(dev, tc, capsys):
+    """sweep_kernel_ab's stages at a chunk size chunksize_ab takes: the
+    gate exact (K1 stages tc x 22 floats twice: 88 KiB at 512, past the
+    default 48 KiB of dynamic shared memory), the marginal and the
+    frame."""
+    from radarays_ros_tpu_torch.bench import sweep_kernel_ab as SK
+
+    recs = SK.stages(dev, chunk_size=tc, n_buildings=16600,
+                     parity_kw=dict(n_buildings=16600, n_rays=40000),
+                     marginal_kw=dict(n_rays=40000, k=3),
+                     frame_kw=dict(n_iters=2, batch=4, n_stream=2),
+                     cfg_overrides=_BENCH_SMALL, label={"chunk_size": tc})
+    assert [r["stage"] for r in recs] == ["parity", "trace_marginal",
+                                          "frame_1m"]
+    assert recs[0]["exact"] is True and recs[0]["hit_mismatches"] == 0
+    assert recs[1]["marginal_trace_ms"] > 0
+    _launched(recs[2], _AT_HIER)
+    capsys.readouterr()
+
+
+def test_sweep_refuses_a_chunk_size_past_shared_memory(scene, dev):
+    """A chunk size whose two K1 stages exceed the card's shared memory is
+    refused by the wrapper before launch (chunksize_ab records it)."""
+    tc = 2048
+    o, d, bud = _fan(4096, dev)
+    o, d, inv_d, bud, lo, hi, C2 = CT._prep_inputs(scene, o, d, bud,
+                                                    ray_block=2048, group=1)
+    e, t_last = CT._run_prep(lo, hi, o, inv_d, bud, t_max=1000.0, RB=2048,
+                             kernels=True)
+    nvisit, order, entry = CT._rank(e[:, :C2])
+    coef = torch.zeros(tc * 8, 22, device=dev)
+    fetch = torch.zeros(tc * 8, 16, device=dev)
+    n0 = CT.sweep.launches
+    with pytest.raises(CT.ChunkSizeRefused, match="shared memory"):
+        CT.sweep(nvisit, order.clamp_max(7), entry, o, d, t_last, coef,
+                 fetch, tc=tc, group=1, t_min=0.0)
+    assert CT.sweep.launches == n0
+
+
+def test_bench_make_demo_on_card(dev, tmp_path, capsys):
+    from radarays_ros_tpu_torch.bench import make_demo as MD
+
+    rec = MD.main(["--out", str(tmp_path)])
+    polar, cart = (MD.read_back(f) for f in rec["files"])
+    assert polar.shape == (3424, 400) and polar.max() > 0
+    assert cart.shape == (800, 800, 3)
+    capsys.readouterr()
+
+
+def test_bench_order_ab_hw_on_card(dev, capsys):
+    from radarays_ros_tpu_torch.bench import order_ab as OA
+
+    recs = OA.main(["--hw", "--buildings", "16600", "--skip-frame",
+                    "--skip-parity"])
+    assert sorted({r["variant"] for r in recs}) == ["median", "sah"]
+    for r in recs:
+        if r["stage"] == "trace_marginal":
+            assert r["marginal_trace_ms"] > 0
+            _launched(r, ("sweep",))
+    capsys.readouterr()
