@@ -49,10 +49,15 @@ Phases (one line of figures each; any failure raises and exits non-zero):
      trajectory, targets at the true parameters, 60 Adam steps split
      around a checkpoint save and load — steps/s, start and final PSNR,
      evaluations to 40 dB, launch counts (K4, K1, K5 and its backward
-     > 0); one loss and gradient through the kernels and through the
-     plain versions (loss bit-equal, gradient finite, nonzero and within
-     1e-5 x max|g|), and K5 and its backward, and K4 on the first pass's
-     rays, at the fit's shapes;
+     > 0, the material lookup's backward table_grad once a pass a step);
+     one loss and gradient through the kernels and through the plain
+     versions (loss bit-equal, gradient finite, nonzero and within
+     1e-5 x max|g|), and K5 and its backward, K4 on the first pass's
+     rays, and table_grad on each pass's indices and cotangents (bitwise,
+     bit-stable over two launches, within 1e-6 x sum|g| of the float64
+     sums) at the fit's shapes; and one steady step under the profiler (with phase
+     10's figures): its device time by group, idle share, and no launch
+     of PyTorch's index-backward kernels;
   8. the command line (io.cli.main, in this process so that the launch
      counters see it) over files written to a temporary directory: phase
      5's scene as a binary PLY, a scene config, the KAIST preset (and its
@@ -162,8 +167,8 @@ Phases (one line of figures each; any failure raises and exits non-zero):
      frames with explicit random inputs at 1M (chunk sizes 128, 256, 384
      and 512), 10k and 10M (run after phase 12, while its scene is
      resident), bit-identical, and one loss and gradient of opti_scale's
-     fit (as phase 7's, with K5, its backward and K4 bitwise at the fit's
-     shapes). Each twin's seconds.
+     fit (as phase 7's, with K5, its backward, K4 and table_grad bitwise
+     at the fit's shapes). Each twin's seconds.
 A kernel's time (ms) is its mean device time per launch from
 torch.profiler's CUDA activity over a loop of wrapper calls (K3's and K4's
 with the window's other device work: K3's memset that zeroes its words, an
@@ -178,16 +183,18 @@ the coefficients of the distinct chunks some lane needs; K2 the slab tests
 under the set coarse bits (K3 every supergroup, K4 every box) x 20; K5 2
 operations per tap term whose point value is nonzero (the terms it runs);
 its backward 2 per tap and valid signal, and the cotangent cells in some
-signal's window.
+signal's window; table_grad 24 bytes a row (index, cotangent) and 4 adds.
 The last three lines of stdout are the kernel table as JSON, the card's name
 and power limit as nvidia-smi prints them, and the result JSON. Each row of
-the table (sweep, prep_hier, coarse_words, prep_flat, bin, bin_bwd): its
-launches over the run of the path that measured it (K1, K2, K3, K5 in
-phase 5's timed batches, K4 in phase 6's, K5's backward in phase 7's Adam
-steps) and per batch (per step for the backward); ms, wrapper_ms, plain_ms
-and bound_ms per launch averaged over a batch's launches, ms_by_bounce; the
-largest error; bound_by; library_ms (null: no single PyTorch call computes
-these functions) with a library_note saying why; path_10m, the same
+the table (sweep, prep_hier, coarse_words, prep_flat, bin, bin_bwd,
+table_grad): its launches over the run of the path that measured it (K1,
+K2, K3, K5 in phase 5's timed batches, K4 in phase 6's, the backward
+kernels in phase 7's Adam steps) and per batch (per step for the
+backward kernels); ms, wrapper_ms, plain_ms and bound_ms per launch
+averaged over a batch's launches (table_grad's over a step's passes),
+ms_by_bounce; the largest error; bound_by; library_ms (table_grad's
+index_add_ on the same inputs; null for the others: no single PyTorch call
+computes their functions) with a library_note saying why; path_10m, the same
 figures from phase 12c for K1, K2, K3 and K5 (null for the others);
 launches_per_batch_of_20, the launches a batch of 20 made in phase 13's
 headline twin at 1M, 10k and 10M (null for a companion it skipped). Details
@@ -201,6 +208,12 @@ its plain version and timed by device time and wrapper events, and the
 batch's profile with the copies made inside bin_signals; it prints one
 JSON line. Two checkouts run in turns in one call compare their kernels
 on one card.
+
+With --fit-profile [ROOT] it runs phase 7's fit setup through the port
+under ROOT: steady steps/s, one steady step under the profiler (device
+time by group, idle share, index-backward launches), the backward
+kernels at the fit's shapes (K5's, and table_grad's where ROOT has it),
+then the opti_scale twin as a user runs it; one JSON line.
 """
 
 from __future__ import annotations
@@ -388,12 +401,15 @@ LIBRARY_NOTE = {
            "fused function has no single PyTorch call",
     "bin_bwd": "gather would take the cotangent at the cells without the "
                "35 taps' adjoint correlation; no single PyTorch call "
-               "computes both"}
+               "computes both",
+    "table_grad": "library_ms: torch.zeros(M, 4).index_add_(0, idx, g) on "
+                  "the same inputs (float atomics: another sum order every "
+                  "run); timed here, used nowhere in the port"}
 # each wrapper's CUDA kernel, as the profiler names it
 KERNEL = {"sweep": "sweep_kernel", "prep_hier": "prep_hier_kernel",
           "coarse_words": "coarse_words_kernel",
           "prep_flat": "prep_flat_kernel", "bin": "bin_kernel",
-          "bin_bwd": "bin_bwd_kernel"}
+          "bin_bwd": "bin_bwd_kernel", "table_grad": "table_grad_kernel"}
 
 
 def bound(ops: float, nbytes: float) -> dict:
@@ -705,6 +721,99 @@ def bin_bwd_vs_plain(cell, s, got, kw: dict, reps: int) -> dict:
                  lambda: bin_bwd(cell, s, got, g, **kw), reps, "bin_bwd")
 
 
+def table_grad_vs_plain(idx, g, n_materials: int, reps: int) -> dict:
+    """The material lookup's backward kernel rr_table_grad on one pass's
+    indices and cotangents against _table_grad_plain, bit for bit, and
+    against itself over two launches, and within 1e-6 x sum|g| per entry
+    of the sums in float64; its time per call (whole: the fold launch that
+    follows the slices' kernel counts), the plain version's and the one
+    PyTorch call that computes the same sums, index_add_ on a zeroed table
+    (library_ms), with its departure from the float64 sums and from the
+    kernel's, relative to sum|g|. The bound: 8 bytes of index and 16 of
+    cotangent a row, the table written once; 4 adds a row."""
+    import torch
+
+    from radarays_ros_tpu_torch.sim.lookup import (_table_grad_plain,
+                                                   table_grad)
+
+    idx, g = idx.reshape(-1).contiguous(), g.reshape(-1, 4).contiguous()
+    got = table_grad(idx, g, n_materials)
+    again = table_grad(idx, g, n_materials)
+    want = _table_grad_plain(idx, g, n_materials)
+    bits = torch.equal(got.view(torch.int32), want.view(torch.int32))
+    stable = torch.equal(got.view(torch.int32), again.view(torch.int32))
+    check(bits, f"table_grad: not bitwise ({max_abs(got, want)})")
+    check(stable, "table_grad: two launches differ")
+
+    def library():
+        return torch.zeros((n_materials, 4), device=g.device).index_add_(
+            0, idx, g)
+
+    # against the sums in float64 (exact to the f32 output's rounding):
+    # the kernel within 1e-6 x sum|g| per entry; index_add_'s own departure
+    # (f32 atomics, one row at a time) recorded beside it
+    def f64(x):
+        return torch.zeros((n_materials, 4), dtype=torch.float64,
+                           device=g.device).index_add_(0, idx, x.double())
+
+    exact, sum_abs = f64(g), f64(g.abs())
+    scale = torch.clamp_min(sum_abs, 1e-300)
+    err = (got.double() - exact).abs()
+    lib = library().double()
+    check(bool((err <= 1e-6 * sum_abs).all()),
+          f"table_grad vs the float64 sums: {float((err / scale).max())} "
+          f"x sum|g|")
+    accuracy = dict(
+        rel_err_vs_f64=float((err / scale).max()),
+        library_rel_err_vs_f64=float(((lib - exact).abs() / scale).max()),
+        library_rel_diff=float(((lib - got.double()).abs() / scale).max()))
+    n = idx.shape[0]
+    return timed(dict(max_abs_err=0.0, bitwise=bits, bit_stable=stable,
+                      rows=n, n_materials=n_materials, **accuracy,
+                      library_ms=cuda_ms(library, reps),
+                      plain_ms=cuda_ms(lambda: _table_grad_plain(
+                          idx, g, n_materials), 2),
+                      **bound(4 * n, n * (8 + 16) + n_materials * 16)),
+                 lambda: table_grad(idx, g, n_materials), reps,
+                 "table_grad", whole=True)
+
+
+def table_grad_inputs(run) -> tuple:
+    """(the material lookup's backward inputs (idx, g, n_materials), one a
+    pass in pass order, as run()'s backward hands them to table_grad;
+    run()'s value)."""
+    import functools
+
+    from radarays_ros_tpu_torch.sim import lookup
+
+    passes, table_grad = [], lookup.table_grad
+
+    # the wrapper counts its launches on the module's table_grad, which is
+    # record while run() runs: record starts from the wrapper's count, and
+    # the wrapper takes record's back
+    @functools.wraps(table_grad)
+    def record(idx, g, n_materials):
+        passes.append((idx, g.detach().clone(), n_materials))
+        return table_grad(idx, g, n_materials)
+
+    lookup.table_grad = record
+    try:
+        out = run()
+    finally:
+        lookup.table_grad = table_grad
+        table_grad.launches = record.launches
+    return passes[::-1], out          # the backward meets the last pass first
+
+
+def table_grad_row(passes: list) -> dict:
+    """The lookup's backward after phase 10: per_launch over a fit step's
+    passes (one launch each), with library_ms averaged beside ms."""
+    row = per_launch(passes)
+    row["library_ms"] = sum(p["library_ms"] for p in passes) / len(passes)
+    row["library_ms_by_pass"] = [p["library_ms"] for p in passes]
+    return row
+
+
 def kaist_setup(device, n_buildings: int = 83000, extent: float = 300.0):
     """bench.py:119-182: the MulRan KAIST preset over the urban scene
     (~1M triangles, or the 10k companion at 800 buildings, or bench.py's
@@ -763,11 +872,12 @@ def kaist_tensors(host, n_objects: int, device):
 def counters():
     """Every kernel wrapper of the port, by kernel name."""
     from radarays_ros_tpu_torch.image.cuda_draw import bin_bwd, bin_signals
+    from radarays_ros_tpu_torch.sim.lookup import table_grad
     from radarays_ros_tpu_torch.trace import cuda_trace as CT
 
     return {"sweep": CT.sweep, "prep_hier": CT.prep_hier,
             "coarse_words": CT.coarse_words, "prep_flat": CT.prep_flat,
-            "bin": bin_signals, "bin_bwd": bin_bwd}
+            "bin": bin_signals, "bin_bwd": bin_bwd, "table_grad": table_grad}
 
 
 def zero_counts() -> dict:
@@ -1136,7 +1246,9 @@ def fit_vs_plain(st, start, cfg, poses, draws, targets, pv,
         loss.backward()
         return loss.detach(), z.grad
 
-    lk, gk = loss_grad(cfg)
+    passes, (lk, gk) = table_grad_inputs(lambda: loss_grad(cfg))
+    check(len(passes) == cfg.n_reflections,
+          f"{len(passes)} table gradients for {cfg.n_reflections} passes")
     lp, gp = loss_grad(cfg.replace(trace_engine="sweep", draw_method="plain"))
     g_err = float((gk - gp).abs().max())
     info.update(loss_kernel=float(lk), loss_plain=float(lp),
@@ -1163,9 +1275,131 @@ def fit_vs_plain(st, start, cfg, poses, draws, targets, pv,
         ray_major(P.trace_budget(cfg, waves)),
         ray_block=cfg.trace_ray_block, group=1)
     k4 = flat_vs_plain(lo, hi, o, inv_d, bud, cfg.trace_ray_block, reps)[0]
-    info["kernels_fit_shapes"] = dict(k5, prep_flat=k4, rows=cell.shape[0],
+    # and the lookup's backward on each pass's indices and cotangents
+    tg = [table_grad_vs_plain(*p, reps=reps) for p in passes]
+    info["kernels_fit_shapes"] = dict(k5, prep_flat=k4, table_grad_passes=tg,
+                                      rows=cell.shape[0],
                                       signals_per_row=cell.shape[1])
     return info
+
+
+# the device kernels of PyTorch's advanced-indexing backward, index_put_
+# with accumulate (sort the indices with cub's radix sort, then accumulate
+# each run of equal ones in one warp; the trace's ranking sorts too); the
+# step's other index_put kernels
+# (index_put_kernel_impl, elementwise: ParamVector.to_params' out-of-place
+# writes of the tuned entries and float_u8_image's column placement, and
+# their backward) are counted apart
+INDEX_BACKWARD = "indexing_backward"
+SORT = "RadixSort"
+INDEX_PUT = "index_put_kernel_impl"
+
+
+def fit_step_profile(st, start, cfg, poses, draws, targets, pv,
+                     warm: int = 3, timed: int = 10) -> dict:
+    """Steady fit steps, as optimize_gradient takes them (zero_grad, loss,
+    backward, the loss fetched, Adam's step), from `start`: after `warm`
+    steps (the first carries one-time costs), `timed` steps by the host
+    clock (steady steps/s; none with timed 0, as phase 10 runs it after
+    other profiler sessions have slowed the host), then one step under
+    torch.profiler: its device time by kernel group and idle share
+    (bench/profile_frame.py's profile_table), the launches of PyTorch's
+    index-backward kernels by the profiler's names, and the wrappers'
+    launch counts in that step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from radarays_ros_tpu_torch.bench.profile_frame import profile_table
+    from radarays_ros_tpu_torch.opti.optimize import (default_objective,
+                                                      step_loss_fn)
+
+    obj = default_objective(st, cfg, poses, targets, cone_draws=draws)
+    step_loss, _, to_z = step_loss_fn(obj, start, pv)
+    z = to_z(pv.to_vec(start)).requires_grad_(True)
+    opt = torch.optim.Adam([z], lr=0.04)
+
+    def step():
+        opt.zero_grad()
+        loss = step_loss(z)
+        loss.backward()
+        val = loss.detach().item()
+        opt.step()
+        return val
+
+    for _ in range(warm):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        step()
+    torch.cuda.synchronize()
+    steady_s = time.perf_counter() - t0
+    steady = dict(steady_steps_per_s=timed / steady_s,
+                  steady_step_ms=1e3 * steady_s / timed) if timed else {}
+    wrappers = zero_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    launches = read_counts(wrappers)
+    table = profile_table(prof, st.device, top=12)
+    dev_ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    index_bwd = [e for e in dev_ev if INDEX_BACKWARD in e.name]
+    return dict(
+        **steady, device_total_ms=table["device_total_ms"],
+        device_idle_share=table["device_idle_share"],
+        device_window_ms=table["device_window_ms"],
+        kernels=table["kernels"], groups=table["top_groups"],
+        index_backward_launches=len(index_bwd),
+        index_backward_ms=sum(e.time_range.elapsed_us()
+                              for e in index_bwd) / 1e3,
+        sort_launches=sum(SORT in e.name for e in dev_ev),
+        index_put_launches=sum(INDEX_PUT in e.name for e in dev_ev),
+        launches=launches)
+
+
+def fit_profile(dev, smi: str) -> dict:
+    """The --fit-profile run, through the port that sys.path finds first
+    (main puts ROOT there): phase 7's fit setup and fit_step_profile, the
+    backward kernels timed at the fit's shapes, then the opti_scale twin's
+    gradient fit as a user runs it (its steps/s), so that checkouts run in
+    turns in one call compare the fit step on one card."""
+    import torch
+
+    from radarays_ros_tpu_torch.image import cuda_draw
+    from radarays_ros_tpu_torch.sim import pipeline as P
+
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        cuda_draw.__file__)))
+    st, true, start, cfg, poses, draws, pv = fit_setup(dev)
+    with torch.no_grad():
+        targets = P.float_u8_image(P.simulate_frames(
+            st, true, cfg, poses, cone_draws=draws), cfg)
+    out = dict(package=root, gpu=smi, phase_7=fit_step_profile(
+        st, start, cfg, poses, draws, targets, pv))
+    # the backward kernels at the fit's shapes
+    rows = fit_vs_plain(st, start, cfg, poses, draws, targets, pv,
+                        reps=50)["kernels_fit_shapes"]
+    while DEFERRED:
+        DEFERRED.pop(0)()
+    rows["table_grad"] = table_grad_row(rows.pop("table_grad_passes"))
+    keys = ("ms", "wrapper_ms", "ms_source", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "ms_by_bounce")
+    out["kernels_fit_shapes"] = {k: {kk: v[kk] for kk in keys if kk in v}
+                                 for k, v in rows.items()
+                                 if isinstance(v, dict)}
+    proc = subprocess.run(
+        [sys.executable, "-m", "radarays_ros_tpu_torch.bench.opti_scale",
+         "--checkpoint", os.path.join(root, "build", "fit_profile_ck.npz")],
+        cwd=root, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"opti_scale: {proc.stderr[-2000:]}")
+    lines = [json.loads(x) for x in proc.stdout.splitlines()
+             if x.startswith("{")]
+    out["opti_scale"] = [{k: v for k, v in r.items()
+                          if k not in ("history", "start_gradient",
+                                       "history_psnr_db")} for r in lines]
+    return out
 
 
 def fit_phase(dev) -> dict:
@@ -1194,7 +1428,8 @@ def fit_phase(dev) -> dict:
           "fit targets are empty or not finite")
     objective = default_objective(st, cfg, poses, targets, cone_draws=draws)
     info = dict(n_triangles=st.n_triangles, n_chunks=st.n_chunks,
-                setup_s=setup_s, true_psnr_db=-float(objective(true)))
+                n_reflections=cfg.n_reflections, setup_s=setup_s,
+                true_psnr_db=-float(objective(true)))
 
     wrappers = zero_counts()
     half = FIT_STEPS // 2
@@ -1219,6 +1454,7 @@ def fit_phase(dev) -> dict:
     hist = list(res1.history) + list(res2.history)
     check(all(launches[k] > 0 for k in ("prep_flat", "sweep", "bin",
                                         "bin_bwd"))
+          and launches["table_grad"] == cfg.n_reflections * FIT_STEPS
           and launches["prep_hier"] == 0 and launches["coarse_words"] == 0,
           f"fit launches {launches}")
     check(extras["step"] == half, "checkpoint step")
@@ -1238,6 +1474,10 @@ def fit_phase(dev) -> dict:
 
     info.update(fit_vs_plain(st, start, cfg, poses, draws, targets, pv,
                              reps=20))
+    # one steady step under the profiler, with phase 10's (the profiler
+    # slows the host for the rest of the process)
+    DEFERRED.append(lambda: info.update(step_profile=fit_step_profile(
+        st, resumed, cfg, poses, draws, targets, pv, timed=0)))
     long = ("grad_kernel", "grad_plain", "history_psnr_db")
     log(f"[7 fit] {json.dumps({k: v for k, v in info.items() if k not in long})}")
     return info
@@ -1510,7 +1750,8 @@ def cli_phase(dev, scene5, host5, cfg, info5, scene10) -> dict:
                  "--out-config", path("fit.yaml")])
             info["optimize_launches"] = read_counts(wrappers)
             check(all(info["optimize_launches"][k] > 0
-                      for k in ("sweep", "prep_flat", "bin", "bin_bwd"))
+                      for k in ("sweep", "prep_flat", "bin", "bin_bwd",
+                                "table_grad"))
                   and info["optimize_launches"]["prep_hier"] == 0,
                   f"optimize launches {info['optimize_launches']}")
             info["optimize_initial_psnr_db"] = float(match(
@@ -2133,7 +2374,8 @@ def huge_phase(dev, smi: str, scene5, host5, cache_dir: str) -> tuple:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     frames, launches, bb, k5, fvp = frames_phase(
-        "12", st, params, cfg, dev, expect_zero=("prep_flat", "bin_bwd"))
+        "12", st, params, cfg, dev,
+        expect_zero=("prep_flat", "bin_bwd", "table_grad"))
     frames.update(scene_mib=scene_mib(st),
                   peak_mib=torch.cuda.max_memory_allocated() / 2**20,
                   prep_group=CT._auto_prep_group(st.n_chunks))
@@ -2556,7 +2798,7 @@ def layouts_phase(dev, host, n_objects: int, cfg, smi: str) -> dict:
             f"{json.dumps({k: v for k, v in row.items() if k != 'launches_per_rank'})}")
     # e: the training step against the single-process objective
     e = [r["e"] for r in ranks]
-    want_e = {"sweep", "prep_flat", "bin", "bin_bwd"}
+    want_e = {"sweep", "prep_flat", "bin", "bin_bwd", "table_grad"}
     check(all(r["launches"][k] > 0 for r in e for k in want_e),
           f"11e launches {[r['launches'] for r in e]}")
     check(all(all(r["kernels_bitwise"].values()) for r in e),
@@ -2804,7 +3046,7 @@ def bench_phase(dev, smi: str, cache_dir: str, bits_10m: dict) -> dict:
               f"start gradient {g['start_grad']}, beam width central "
               f"difference {g['beam_width_central_difference']}")
         positive(bb, "final_psnr_db", "wall_s", "evaluations")
-        launched(g, ("sweep", "prep_flat", "bin", "bin_bwd"))
+        launched(g, ("sweep", "prep_flat", "bin", "bin_bwd", "table_grad"))
         info["opti_scale"] = lines
         log("[13 opti_scale start gradient] " + json.dumps(
             {k: g[k] for k in ("start_grad", "start_grad_norm",
@@ -2982,6 +3224,16 @@ def main() -> int:
             torch.device("cuda"), smi, sys.argv[3:] or ("5", "6"))}),
             flush=True)
         return 0
+    if sys.argv[1:2] == ["--fit-profile"]:
+        root = os.path.abspath(sys.argv[2]) if len(sys.argv) > 2 else HERE
+        sys.path.insert(0, root)
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout.strip().splitlines()[0]
+        print(json.dumps({"fit_profile": fit_profile(
+            torch.device("cuda"), smi)}), flush=True)
+        return 0
     dev = torch.device("cuda")
     # the scene cache of this run: phase 12 primes the 10M scene into it,
     # phase 13's twins find their builds there
@@ -3029,6 +3281,7 @@ def run(dev, run_cache: str) -> int:
     from radarays_ros_tpu_torch.native import builder as native_builder
 
     b = cuda_build.build()
+    check("table_grad" in counters(), "the material lookup did not import")
     nb = native_builder.build()
     details["build"] = dict(seconds=b.seconds, library=b.path.name,
                             native_s=nb.seconds, native_library=nb.path.name)
@@ -3103,7 +3356,8 @@ def run(dev, run_cache: str) -> int:
     scene, st, params, cfg, info, host5 = kaist_setup(dev)
     log(f"[5 scene] {json.dumps(info)}")
     frames, launches, bb5, k5_5, fvp = frames_phase(
-        "5", st, params, cfg, dev, expect_zero=("prep_flat", "bin_bwd"))
+        "5", st, params, cfg, dev,
+        expect_zero=("prep_flat", "bin_bwd", "table_grad"))
     frames["gpu"] = smi
     details.update(frames=frames, frame_vs_plain=fvp)
     scene5, cfg5, info5 = scene, cfg, info
@@ -3114,7 +3368,7 @@ def run(dev, run_cache: str) -> int:
     log(f"[6 scene] {json.dumps(info)}")
     frames10, launches10, bb6, k5_6, fvp10 = frames_phase(
         "6", st, params, cfg, dev,
-        expect_zero=("prep_hier", "coarse_words", "bin_bwd"),
+        expect_zero=("prep_hier", "coarse_words", "bin_bwd", "table_grad"),
         min_column_share=0.1)      # 800 buildings over 600 m x 600 m
     frames10["gpu"] = smi
     details.update(frames_10k=frames10, frame_vs_plain_10k=fvp10)
@@ -3192,6 +3446,15 @@ def run(dev, run_cache: str) -> int:
     mk, mk10 = kernel_rows(bb5, k5_5), kernel_rows(bb6, k5_6)
     mk12 = kernel_rows(bb12, k5_12)
     details.update(kernels_main_path=mk, kernels_10k=mk10, kernels_10m=mk12)
+    fitk = details["fit"]["kernels_fit_shapes"]
+    fitk["table_grad"] = table_grad_row(fitk["table_grad_passes"])
+    prof = details["fit"]["step_profile"]
+    log(f"[10 fit step profile, phase 7] {json.dumps(prof)}")
+    check(prof["index_backward_launches"] == 0
+          and prof["launches"]["table_grad"] == details["fit"]["n_reflections"]
+          and prof["launches"]["bin_bwd"] == 1,
+          f"a steady fit step: {prof['index_backward_launches']} index-"
+          f"backward launches, wrappers {prof['launches']}")
     for tag, rows in (("5", mk), ("6", mk10),
                       ("7", details["fit"]["kernels_fit_shapes"]),
                       ("12", mk12)):
@@ -3245,24 +3508,28 @@ def run(dev, run_cache: str) -> int:
               "coarse_words": "radarays_ros_tpu_torch/csrc/prep.cu",
               "prep_flat": "radarays_ros_tpu_torch/csrc/prep.cu",
               "bin": "radarays_ros_tpu_torch/csrc/bin.cu",
-              "bin_bwd": "radarays_ros_tpu_torch/csrc/bin.cu"}
+              "bin_bwd": "radarays_ros_tpu_torch/csrc/bin.cu",
+              "table_grad": "radarays_ros_tpu_torch/csrc/lookup.cu"}
     replaces = {
         "sweep": "radarays_ros_tpu/trace/pallas_trace.py:99",
         "prep_hier": "radarays_ros_tpu/trace/pallas_trace.py:523",
         "coarse_words": "radarays_ros_tpu/trace/pallas_trace.py:584",
         "prep_flat": "radarays_ros_tpu/trace/pallas_trace.py:488",
         "bin": "radarays_ros_tpu/image/pallas_draw.py:33",
-        "bin_bwd": "radarays_ros_tpu/image/pallas_draw.py:111"}
+        "bin_bwd": "radarays_ros_tpu/image/pallas_draw.py:111",
+        # no Pallas kernel: XLA's transpose of the material gathers
+        "table_grad": "radarays_ros_tpu/sim/pipeline.py:69-77,175"}
     # each row from the path whose run and shapes measured it: K4 runs only
-    # on scenes under 256 supergroups (phase 6), K5's backward only in the
-    # fit (phase 7: launches per Adam step), the rest on the 1M-triangle
-    # frames (phase 5)
+    # on scenes under 256 supergroups (phase 6), the backward kernels only
+    # in the fit (phase 7: launches per Adam step), the rest on the
+    # 1M-triangle frames (phase 5)
     fit = details["fit"]
     rows = {k: (launches10, mk10, TIMED_BATCHES, "6 frames at 10k")
             if k == "prep_flat" else (launches, mk, TIMED_BATCHES,
                                       "5 frames at 1M") for k in source}
-    rows["bin_bwd"] = (fit["launches"], fit["kernels_fit_shapes"],
-                       FIT_STEPS, "7 fit, per Adam step")
+    for k in ("bin_bwd", "table_grad"):
+        rows[k] = (fit["launches"], fit["kernels_fit_shapes"], FIT_STEPS,
+                   "7 fit, per Adam step")
     # ms (device time), wrapper_ms, plain_ms and bound_ms are per launch,
     # averaged over the launches of one batch (K1-K4: one a bounce; K5:
     # one a batch)
@@ -3285,7 +3552,7 @@ def run(dev, run_cache: str) -> int:
             wrapper_ms=m["wrapper_ms"], ms_source=m["ms_source"],
             ms_by_bounce=m.get("ms_by_bounce", [m["ms"]]),
             plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
-            bound_by=m["bound_by"], library_ms=None,
+            bound_by=m["bound_by"], library_ms=m.get("library_ms"),
             library_note=LIBRARY_NOTE[k], path_10m=at_10m,
             launches_per_batch_of_20={
                 tag: None if v is None else v[k]

@@ -51,10 +51,10 @@ KAIST = dict(
     opaque_materials=True, trace_engine="kernel", trace_ray_block=2048,
     draw_method="auto", trace_aux_baked=True)
 
-# the kernel wrappers' names in kernel_launches: K1, K2, K3, K4, K5 and
-# K5's backward
+# the kernel wrappers' names in kernel_launches: K1, K2, K3, K4, K5, K5's
+# backward and the material lookup's backward
 KERNELS = ("sweep", "prep_hier", "coarse_words", "prep_flat", "bin",
-           "bin_bwd")
+           "bin_bwd", "table_grad")
 
 
 def log(msg: str) -> None:
@@ -158,10 +158,12 @@ def best_and_trimmed(times: list) -> tuple:
 
 def _wrappers() -> dict:
     from radarays_ros_tpu_torch.image.cuda_draw import bin_bwd, bin_signals
+    from radarays_ros_tpu_torch.sim.lookup import table_grad
     from radarays_ros_tpu_torch.trace import cuda_trace as CT
 
     return dict(zip(KERNELS, (CT.sweep, CT.prep_hier, CT.coarse_words,
-                              CT.prep_flat, bin_signals, bin_bwd)))
+                              CT.prep_flat, bin_signals, bin_bwd,
+                              table_grad)))
 
 
 def zero_launches() -> None:

@@ -26,12 +26,13 @@ import time
 from typing import NamedTuple
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("sweep.cu", "prep.cu", "bin.cu")
+_SOURCES = ("sweep.cu", "prep.cu", "bin.cu", "lookup.cu")
 _BUILD_DIR = _CSRC.parent.parent / "build" / "radarays_torch_kernels"
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
           "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.c_longlong
 # C entry points: name -> argtypes (every entry returns cudaGetLastError())
 _SIGNATURES = {
     "rr_sweep": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
@@ -42,6 +43,7 @@ _SIGNATURES = {
     "rr_prep_flat": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
     "rr_bin": [_P, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P],
     "rr_bin_bwd": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P],
+    "rr_table_grad": [_P, _P, _LL, _I, _P, _P, _P],
 }
 
 
@@ -108,7 +110,7 @@ def build() -> Build:
 def check_tensors(name: str, *tensors, dtypes) -> None:
     """Raise unless each tensor is a contiguous CUDA tensor of its dtype."""
     for t, dt in zip(tensors, dtypes):
-        if t.device.type != "cuda" or t.dtype != dt or not t.is_contiguous():
+        if not t.is_cuda or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"{name}: expected contiguous CUDA {dt}, got "
                              f"{t.dtype} on {t.device} (contiguous="
                              f"{t.is_contiguous()})")
@@ -121,7 +123,8 @@ def check(err: int, name: str) -> None:
 
 
 def stream_ptr(t) -> int:
-    """The current CUDA stream of tensor t's device, as an int pointer."""
+    """The current CUDA stream of tensor t's device, as an int pointer (the
+    raw handle, without building a torch.cuda.Stream object per call)."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

@@ -23,6 +23,9 @@ from radarays_ros_tpu_torch.image.cuda_draw import (_bin_bwd,
                                                     _bin_plain, bin_bwd,
                                                     bin_signals)
 from radarays_ros_tpu_torch.image.denoise import build_denoiser
+from radarays_ros_tpu_torch.sim.lookup import (MAX_MATERIALS,
+                                               MaterialCapRefused,
+                                               _table_grad_plain, table_grad)
 from radarays_ros_tpu_torch.trace import cuda_trace as CT
 from radarays_ros_tpu_torch.trace.api import trace
 
@@ -169,9 +172,26 @@ def _bin_case(combine, case, dev):
     within a few cells each, plus 3 signals (N = 203, not a multiple of
     32), over 13,000 cells (the row takes more than 48 KB of shared
     memory); some rows are all invalid, some all zero, some beams at the
-    row's edges."""
+    row's edges. "fit": the fit's shapes (3 frames x 400 azimuths, 150
+    signals a row over 3,424 cells: 50 cone samples of one beam on pass 1,
+    100 on pass 2), "kaist": a KAIST batch of 4 (1,600 x 200); both with
+    the signals of a pass clustered in a few cells and a third invalid.
+    "wide": 64 rows of 600 signals spread over 40,000 cells, so that few
+    signals share a cell and the taps' windows seldom overlap. combine
+    "taps1" and "taps256": one tap, and the kernels' most taps."""
     rng = np.random.default_rng(2)
-    if case == "uniform":
+    if case in ("fit", "kaist"):
+        A, N, n_cells = (1200, 150, 3424) if case == "fit" else (1600, 200,
+                                                                 3424)
+        base = rng.integers(0, n_cells, (A, N // 50, 1))
+        spread = np.rint(rng.normal(0.0, 3.0, (A, N // 50, 50)))
+        cell = (base + spread).reshape(A, N).astype(np.int64)
+        cell = np.where(rng.uniform(size=(A, N)) < 0.33, n_cells, cell)
+        cell = cell.astype(np.int32)
+    elif case == "wide":
+        A, N, n_cells = 64, 600, 40000
+        cell = rng.integers(-5, n_cells + 5, (A, N)).astype(np.int32)
+    elif case == "uniform":
         A, N, n_cells = 400, 200, 3424
         cell = rng.integers(-5, n_cells + 5, (A, N)).astype(np.int32)
         cell[:, :40] = rng.integers(0, 8, (A, 40))          # duplicates
@@ -194,15 +214,24 @@ def _bin_case(combine, case, dev):
         s[50:60] = 0.0                                      # all zero
     if combine == "max":
         s = s - np.float32(0.5)
-    w, mode = build_denoiser(1, 35, 0.35) if combine == "taps" else (None, 0)
+    w, mode = {"taps": build_denoiser(1, 35, 0.35),
+               "taps1": (np.float32([0.75]), 0),
+               "taps256": build_denoiser(1, 256, 0.35)}.get(combine,
+                                                             (None, 0))
     kw = dict(n_cells=n_cells, combine="max" if combine == "max" else "sum",
               weights=None if w is None else tuple(map(float, w)),
               w_mode=mode)
     return torch.from_numpy(cell).to(dev), torch.from_numpy(s).to(dev), kw
 
 
-@pytest.mark.parametrize("case", ["uniform", "long", "clustered"])
-@pytest.mark.parametrize("combine", ["taps", "sum", "max"])
+# K5 and its backward at the main path's shapes and at the edges of what
+# the kernels take (see _bin_case)
+_BIN_CASES = ["uniform", "long", "clustered", "fit", "kaist", "wide"]
+_BIN_COMBINES = ["taps", "sum", "max", "taps1", "taps256"]
+
+
+@pytest.mark.parametrize("case", _BIN_CASES)
+@pytest.mark.parametrize("combine", _BIN_COMBINES)
 def test_bin_kernel_equals_plain(dev, combine, case):
     cell, s, kw = _bin_case(combine, case, dev)
     n0 = bin_signals.launches
@@ -214,11 +243,12 @@ def test_bin_kernel_equals_plain(dev, combine, case):
     assert (got != 0).any()
 
 
-@pytest.mark.parametrize("case", ["uniform", "long", "clustered"])
-@pytest.mark.parametrize("combine", ["taps", "sum", "max"])
+@pytest.mark.parametrize("case", _BIN_CASES)
+@pytest.mark.parametrize("combine", _BIN_COMBINES)
 def test_bin_bwd_kernel_equals_plain(dev, combine, case):
     """K5's backward kernel bit for bit against the reference's _bin_bwd
-    and the per-signal plain version, on the forward's own output."""
+    and the per-signal plain version, on the forward's own output, at the
+    fit's and the KAIST shapes among the others."""
     cell, s, kw = _bin_case(combine, case, dev)
     out = bin_signals(cell, s, **kw)
     g = torch.from_numpy(np.random.default_rng(8).normal(
@@ -231,6 +261,40 @@ def test_bin_bwd_kernel_equals_plain(dev, combine, case):
         want = plain(cell, s, out, g, **kw)
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     assert got.abs().max() > 0
+
+
+@pytest.mark.parametrize("n,M", [(60000, 3), (120000, 3), (1, 3), (1025, 7),
+                                 (3100, MAX_MATERIALS),
+                                 (120000, MAX_MATERIALS)])
+def test_table_grad_kernel_equals_plain(dev, n, M):
+    """The material lookup's backward kernel bit for bit against its plain
+    version and against itself over two launches, at the fit's row counts
+    (60,000 and 120,000: pass 1 and 2) and at the material cap, with runs
+    of one material, signed zeros and magnitudes over six decades; within
+    1e-6 x sum|g| per entry of index_add_; a larger table is refused
+    before launch."""
+    rng = np.random.default_rng(n + M)
+    idx = rng.integers(0, M, n)
+    idx[: n // 3] = rng.integers(0, M)
+    g = (rng.normal(size=(n, 4)) * 10.0 ** rng.integers(-3, 4, (n, 4)))
+    g = g.astype(np.float32)
+    g[rng.uniform(size=(n, 4)) < 0.1] = -0.0
+    idx, g = torch.from_numpy(idx).to(dev), torch.from_numpy(g).to(dev)
+    n0 = table_grad.launches
+    got = table_grad(idx, g, M)
+    again = table_grad(idx, g, M)
+    torch.cuda.synchronize()
+    assert table_grad.launches == n0 + 2
+    want = _table_grad_plain(idx, g, M)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    lib = torch.zeros((M, 4), device=dev).index_add_(0, idx, g)
+    sum_abs = torch.zeros((M, 4), dtype=torch.float64, device=dev) \
+        .index_add_(0, idx, g.abs().double())
+    assert ((got - lib).abs() <= 1e-6 * sum_abs).all()
+    with pytest.raises(MaterialCapRefused):
+        table_grad(idx, g, M + MAX_MATERIALS)
+    assert table_grad.launches == n0 + 2
 
 
 @pytest.mark.parametrize("n_super", [32, 128, 320, 3136])
@@ -398,8 +462,9 @@ def test_bin_function_backward_on_card(dev, combine):
 def test_frame_gradient_through_kernels_equals_plain(small_scene, dev):
     """A non-opaque frame's loss through the kernels is bit-equal to the
     plain versions' and its gradient w.r.t. the material table and the
-    beam width agrees within 1e-5 of the largest entry (gathers
-    accumulate with atomics on the card)."""
+    beam width agrees within 1e-5 of the largest entry (the plain
+    binning's autograd sums the tap adjoints in another order than K5's
+    backward)."""
     from radarays_ros_tpu_torch.opti.metrics import psnr
     from radarays_ros_tpu_torch.sim.config import (Materials,
                                                    RadarModelConfig,
@@ -442,6 +507,73 @@ def test_frame_gradient_through_kernels_equals_plain(small_scene, dev):
     assert torch.isfinite(gk).all() and gk.abs().max() > 0
     torch.testing.assert_close(gk, gp, rtol=0,
                                atol=1e-5 * float(gp.abs().max()))
+
+
+def test_steady_fit_step_launches_no_index_backward(small_scene, dev):
+    """A steady Adam step of a refraction-tree fit with multipath (after two
+    warm-up steps), under torch.profiler: no kernel of PyTorch's
+    advanced-indexing backward (index_put_ with accumulate: its
+    indexing_backward* kernels, after a radix sort) runs; the
+    material table's gradient comes from the lookup's kernel, once a pass,
+    and K5's backward once."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from radarays_ros_tpu_torch.opti import optimize as O
+    from radarays_ros_tpu_torch.sim.config import (Materials,
+                                                   RadarModelConfig,
+                                                   RadarParams)
+    from radarays_ros_tpu_torch.utils.transforms import make_pose
+    from radarays_ros_tpu_torch.wave.cone import sample_cone_draws
+
+    mats = Materials.from_list([
+        dict(velocity=0.3, ambient=1.0, diffuse=0.0, specular=1.0),
+        dict(velocity=0.1, ambient=0.5, diffuse=0.4, specular=60.0),
+        dict(velocity=0.05, ambient=0.8, diffuse=0.2, specular=300.0)],
+        device=dev)
+    n_obj = int(small_scene.obj_ids.max()) + 1
+    om = np.ones(n_obj, np.int32)
+    om[0] = 2
+    start = RadarParams.make(mats, om, beam_width_deg=8.0)
+    cfg = RadarModelConfig(n_angles=64, n_cells=512, resolution=0.1,
+                           n_samples=8, n_reflections=2, ambient_noise=0,
+                           signal_denoising_triangular_width=15,
+                           opaque_materials=False, record_multi_path=True,
+                           trace_engine="kernel")
+    gen = torch.Generator(dev).manual_seed(0)
+    draws = tuple(torch.stack(d) for d in zip(*[
+        sample_cone_draws(gen, 8, 2) for _ in range(2)]))
+    poses = torch.from_numpy(np.stack([make_pose([0.5, 0.5, 2.0]),
+                                       make_pose([-1.0, 0.5, 2.0])]))
+    targets = torch.full((2, 512, 64), 3.0, device=dev)
+    obj = O.default_objective(small_scene, cfg, poses, targets,
+                              cone_draws=draws)
+    pv = O.ParamVector(material_slots=(1, 2), tune_n_reflections=False)
+    step_loss, _, to_z = O.step_loss_fn(obj, start, pv)
+    z = to_z(pv.to_vec(start)).requires_grad_(True)
+    opt = torch.optim.Adam([z], lr=0.04)
+
+    def step():
+        opt.zero_grad()
+        loss = step_loss(z)
+        loss.backward()
+        loss.item()
+        opt.step()
+
+    step()
+    step()
+    torch.cuda.synchronize()
+    t0, b0 = table_grad.launches, bin_bwd.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert any("table_grad_kernel" in x for x in names)
+    assert not [x for x in names if "indexing_backward" in x]
+    assert table_grad.launches - t0 == cfg.n_reflections
+    assert bin_bwd.launches - b0 == 1
+    assert torch.isfinite(z.grad).all() and z.grad.abs().max() > 0
 
 
 @pytest.mark.parametrize("mode", ["single", "fan"])

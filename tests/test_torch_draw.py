@@ -191,13 +191,30 @@ def test_bin_cells_matches_reference():
 
 def _grad_case(case):
     """(cell, s, bin kwargs) for the K5 gradient tests: taps, plain sum, or
-    max with some negative strengths."""
+    max with some negative strengths; and the backward's edge cases: every
+    cell within a tap window of either end, 0 and n_cells - 1 among them
+    and -1 and n_cells beside them ("edges"); three signals in four invalid ("invalid"); max with
+    ties in every touched cell ("max_ties"); one tap ("w1"); 256 taps, the
+    kernel's most, hanging over both ends of the 300 cells ("w256")."""
     cell, s, ok = _signals(16, 200, 300, seed=0)
-    if case == "max":
+    rng = np.random.default_rng(9)
+    if case in ("max", "max_ties"):
+        if case == "max_ties":
+            cell = np.where(ok, cell % 12, cell).astype(np.int32)
+            s = rng.choice(np.float32([0.25, 0.75, 1.0]), s.shape)
         s = np.where(ok, s - 0.5, -np.inf).astype(np.float32)
         return cell, s, dict(n_cells=300, combine="max")
+    if case == "edges":
+        cell = rng.choice(np.r_[0:35, 265:300], cell.shape).astype(np.int32)
+        cell[:, :4] = [0, 299, -1, 300]       # and just past either end
+    elif case == "invalid":
+        bad = rng.choice(np.int32([-1, -40, 300, 307, 2 ** 30]), cell.shape)
+        cell = np.where(rng.uniform(size=cell.shape) < 0.75, bad, cell)
+    ok = (cell >= 0) & (cell < 300)
     s = np.where(ok, s, 0.0).astype(np.float32)
-    w, mode = D.build_denoiser(1, 35, 0.35) if case == "taps" else (None, 0)
+    w, mode = {"sum": (None, 0), "w1": (np.float32([0.75]), 0),
+               "w256": D.build_denoiser(1, 256, 0.35)}.get(
+        case, D.build_denoiser(1, 35, 0.35))
     return cell, s, dict(n_cells=300, combine="sum", weights=w, w_mode=mode)
 
 
@@ -255,7 +272,7 @@ def _edge_case(case):
     cell[:, -60:] = rng.choice(edge, (cell.shape[0], 60)).astype(np.int32)
     cell[:, -70:-60] = cell[:, -60:-50]                       # duplicates
     ok = (cell >= 0) & (cell < n_cells)
-    fill = -np.inf if case == "max" else 0.0
+    fill = -np.inf if kw["combine"] == "max" else 0.0
     s = np.where(ok, np.abs(s) + 0.25, fill).astype(np.float32)
     out = _bin_plain(torch.from_numpy(cell), torch.from_numpy(s), **kw)
     return torch.from_numpy(cell), torch.from_numpy(s), out, _bwd_kw(kw)
@@ -270,7 +287,12 @@ def _bwd_kw(kw):
                 w_mode=kw.get("w_mode", 0))
 
 
-@pytest.mark.parametrize("case", ["taps", "sum", "max"])
+# K5's backward at the edges of what it takes (see _grad_case)
+_BWD_CASES = ["taps", "sum", "max", "edges", "invalid", "max_ties", "w1",
+              "w256"]
+
+
+@pytest.mark.parametrize("case", _BWD_CASES)
 def test_bin_bwd_signals_bit_equal_to_bin_bwd(case):
     """The per-signal backward (the kernel's order: each signal's own cell,
     taps in k order) returns the bits of _bin_bwd's full correlation and
@@ -287,7 +309,7 @@ def test_bin_bwd_signals_bit_equal_to_bin_bwd(case):
     assert edge.sum() > 100 and got[edge].abs().max() > 0
 
 
-@pytest.mark.parametrize("case", ["taps", "sum", "max"])
+@pytest.mark.parametrize("case", _BWD_CASES)
 def test_bin_bwd_signals_matches_reference_vjp(case):
     """The per-signal backward against jax.vjp of the reference's
     custom_vjp (interpret), within test_bin_gradient_matches_reference_vjp's
