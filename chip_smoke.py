@@ -168,7 +168,30 @@ Phases (one line of figures each; any failure raises and exits non-zero):
      and 512), 10k and 10M (run after phase 12, while its scene is
      resident), bit-identical, and one loss and gradient of opti_scale's
      fit (as phase 7's, with K5, its backward, K4 and table_grad bitwise
-     at the fit's shapes). Each twin's seconds.
+     at the fit's shapes). Each twin's seconds;
+ 14. the compiled frame (sim/pipeline.py's simulate_frames_jit: one CUDA
+     graph a config and shape, sim/graphs.py), run after phase 9: a. the
+     compiled batch against the eager batch on the same inputs, bit for
+     bit (u8, float, max_val), on the generator path (the first call
+     captures, after its eager warm-up) and on explicit draws: the 10k
+     companion on "kernel" and on "mxu", a small scene on "brute", the 1M
+     scene at batches of 4 and 20 (K1, K2, K3, K5 in the 1M graphs; K1,
+     K4, K5 in the 10k graph); a replay with new poses, materials and beam
+     width against the eager frame for those values with no new capture,
+     and a new cfg capturing a second graph; each graph's capture seconds
+     and pool MiB; b. frames/s eager against compiled in turns (eager,
+     compiled, compiled, eager) at 1M, batches of 4 and 20, and the
+     compiled path's launches from 0 over its timed batches (each
+     replay's recorded launches); d. phase 7's fit through
+     opti.optimize.value_and_grad (forward and backward in one graph)
+     against the eager step: loss and gradient bitwise over 3 Adam steps,
+     K5's backward once and table_grad once a pass in the graph, steady
+     steps/s in turns; and, with phase 10's figures, c. one replayed
+     batch of 20 at 1M under the profiler against one eager batch (kernels,
+     copies, synchronizing calls, idle share), the compiled and eager fit
+     steps' idle shares, and e. each graph's recorded launches a replay
+     against the profiler's count of its kernels in one replay (1M batch
+     of 20, 10k, the fit).
 A kernel's time (ms) is its mean device time per launch from
 torch.profiler's CUDA activity over a loop of wrapper calls (K3's and K4's
 with the window's other device work: K3's memset that zeroes its words, an
@@ -208,6 +231,9 @@ its plain version and timed by device time and wrapper events, and the
 batch's profile with the copies made inside bin_signals; it prints one
 JSON line. Two checkouts run in turns in one call compare their kernels
 on one card.
+
+With --compiled it runs phase 14 alone (its profiles included) on the
+1M and 10k scenes and the fit's, and prints one JSON line.
 
 With --fit-profile [ROOT] it runs phase 7's fit setup through the port
 under ROOT: steady steps/s, one steady step under the profiler (device
@@ -1008,7 +1034,9 @@ def batch_profile(run) -> dict:
         device_busy_ms=busy / 1e3, device_window_ms=window / 1e3,
         device_idle_share=1.0 - busy / window,
         bin_calls=sum(e.name == "_Bin" for e in cpu),
-        memcpy_calls_in_bin=memcpy_calls_in(cpu, "_Bin"))
+        memcpy_calls_in_bin=memcpy_calls_in(cpu, "_Bin"),
+        by_kernel={k: sum(v in e.name for e in dev)
+                   for k, v in KERNEL.items()})
 
 
 def memcpy_calls_in(cpu, op: str) -> int:
@@ -3023,8 +3051,10 @@ def bench_phase(dev, smi: str, cache_dir: str, bits_10m: dict) -> dict:
         p = lines[0]
         positive(p, "device_total_ms", "device_window_ms", "kernels",
                  "checksum")
+        # the twin profiles a replay of the compiled batch: no host call
+        # of bin_signals, its kernel inside the graph (launched below)
         check(0.0 <= p["device_idle_share"] < 1.0 and p["top_groups"]
-              and p["device"] == smi and p["bin_calls"] == 1,
+              and p["device"] == smi and p["bin_calls"] == 0,
               f"profile {p}")
         launched(p, AT_1M)
         info["profile_frame"] = p
@@ -3206,6 +3236,336 @@ def kernel_times(dev, smi: str, phases=("5", "6")) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 14
+
+JIT_TIMED = 10        # batches a timing of phase 14b
+JIT_FIT_STEPS = 15    # steps a timing of phase 14d
+JIT_FIT_LOCKSTEP = 3  # steps of phase 14d held bitwise against eager
+
+
+def poses_on(n: int, dev):
+    """n KAIST poses 0.5 m apart in x (phase 5's spacing), on the card."""
+    import numpy as np
+    import torch
+
+    from radarays_ros_tpu_torch.utils.transforms import make_pose
+
+    return torch.from_numpy(np.stack(
+        [make_pose([0.5 * f, 0.25 * f, 2.0]) for f in range(n)])).to(dev)
+
+
+def frames_equal(a, b) -> bool:
+    """Two FrameResults bit for bit (u8, float, max_val)."""
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def jit_vs_eager(tag: str, st, params, cfg, n: int) -> tuple:
+    """Phase 14a on one scene and config: a batch of n through
+    simulate_frames_jit (the first call captures: the eager warm-up is its
+    result; then replays) against simulate_frames on the same inputs — on
+    the generator path (seeds 0-2) and on explicit draws and Perlin
+    offsets; every batch bit-identical, one capture. Returns (figures,
+    the graph)."""
+    import torch
+
+    from radarays_ros_tpu_torch.sim import pipeline as P
+
+    dev = st.device
+    poses = poses_on(n, dev)
+    c0 = P.frame_graphs.captures
+    bits = []
+    for seed in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = P.simulate_frames_jit(
+            st, params, cfg, poses,
+            generator=torch.Generator(dev).manual_seed(seed))
+        torch.cuda.synchronize()
+        if seed == 0:
+            first_s = time.perf_counter() - t0
+        want = P.simulate_frames(
+            st, params, cfg, poses,
+            generator=torch.Generator(dev).manual_seed(seed))
+        bits.append(frames_equal(got, want))
+    kw = explicit_inputs(cfg, n, dev, seed=7)
+    got = P.simulate_frames_jit(st, params, cfg, poses, **kw)
+    want = P.simulate_frames(st, params, cfg, poses, **kw)
+    g = P.frame_graphs.last()
+    out = dict(scene=tag, n_triangles=st.n_triangles, batch=n,
+               engine=cfg.trace_engine, bitwise_generator=bits,
+               bitwise_explicit=frames_equal(got, want),
+               captures=P.frame_graphs.captures - c0,
+               first_call_s=first_s,
+               mean_pixel=float(got.image_u8.float().mean()), **g.info())
+    log(f"[14a {tag}, batch {n}, {cfg.trace_engine}] {json.dumps(out)}")
+    check(all(bits) and out["bitwise_explicit"],
+          f"14a {tag}: compiled frames differ from eager frames")
+    check(out["captures"] == 1 and g.replays == 3,
+          f"14a {tag}: {out['captures']} captures, {g.replays} replays")
+    check(out["mean_pixel"] > 0, f"14a {tag}: empty frames")
+    return out, g
+
+
+def explicit_inputs(cfg, n: int, dev, seed: int) -> dict:
+    """Cone draws and Perlin offsets of n frames, drawn on the card from a
+    generator seeded `seed`."""
+    import torch
+
+    from radarays_ros_tpu_torch.wave.cone import sample_cone_draws
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    draws = [sample_cone_draws(gen, cfg.n_samples, cfg.beam_sample_dist)
+             for _ in range(n)]
+    return dict(cone_draws=tuple(torch.stack(d) for d in zip(*draws)),
+                random_begin=torch.randint(0, 1000, (n, cfg.n_angles),
+                                           generator=gen, device=dev))
+
+
+def frames_per_s(fn, st, params, cfg, n: int) -> dict:
+    """Frames/s of JIT_TIMED batches of n through fn (simulate_frames or
+    simulate_frames_jit) on the generator path, by CUDA events around the
+    batches and by the host clock."""
+    import torch
+
+    poses = poses_on(n, st.device)
+    gen = torch.Generator(st.device).manual_seed(3)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    with torch.no_grad():
+        for _ in range(JIT_TIMED):
+            fn(st, params, cfg, poses, generator=gen)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(frames_per_s=n * JIT_TIMED / (start.elapsed_time(end) / 1e3),
+                wall_frames_per_s=n * JIT_TIMED / wall)
+
+
+def profiled_counts(prof_row: dict, graph, tag: str) -> dict:
+    """Phase 14e: a graph's launches a replay (recorded at capture) against
+    the profiler's count of its kernels in one replay."""
+    got = {k: prof_row["by_kernel"][k] for k in KERNEL}
+    want = {k: graph.launches.get(k, 0) for k in KERNEL}
+    check(got == want, f"14e {tag}: profiler {got}, recorded {want}")
+    return dict(recorded=want, profiler=got)
+
+
+def compiled_fit(dev) -> tuple:
+    """Phase 14d: phase 7's fit setup through opti.optimize.value_and_grad
+    (one CUDA graph: forward and backward) against the eager step — loss
+    and gradient bitwise over JIT_FIT_LOCKSTEP Adam steps, the backward
+    kernels inside the graph, steady steps/s in turns (eager, compiled,
+    compiled, eager). Returns (figures, a compiled step, an eager step)
+    for the profile of phase 10."""
+    import torch
+
+    from radarays_ros_tpu_torch.opti import optimize as O
+    from radarays_ros_tpu_torch.sim import pipeline as P
+
+    st, true, start, cfg, poses, draws, pv = fit_setup(dev)
+    with torch.no_grad():
+        targets = P.float_u8_image(P.simulate_frames(
+            st, true, cfg, poses, cone_draws=draws), cfg)
+    obj = O.default_objective(st, cfg, poses, targets, cone_draws=draws)
+    step_loss, _, to_z = O.step_loss_fn(obj, start, pv)
+    grad_fn = O.value_and_grad(step_loss)
+    z_c = to_z(pv.to_vec(start)).requires_grad_(True)
+    z_e = z_c.detach().clone().requires_grad_(True)
+    opt_c = torch.optim.Adam([z_c], lr=0.04)
+    opt_e = torch.optim.Adam([z_e], lr=0.04)
+
+    def compiled_step():
+        val, z_c.grad = grad_fn(z_c)
+        v = val.item()
+        opt_c.step()
+        return v
+
+    def eager_step():
+        opt_e.zero_grad()
+        loss = step_loss(z_e)
+        loss.backward()
+        v = loss.detach().item()
+        opt_e.step()
+        return v
+
+    loss_bits, grad_bits = [], []
+    for _ in range(JIT_FIT_LOCKSTEP):
+        val, g = grad_fn(z_c)
+        opt_e.zero_grad()
+        loss = step_loss(z_e)
+        loss.backward()
+        loss_bits.append(bool(torch.equal(val, loss.detach())))
+        grad_bits.append(bool(torch.equal(g, z_e.grad)))
+        z_c.grad = g
+        opt_c.step()
+        opt_e.step()
+    graph = grad_fn.last()
+
+    def steps_per_s(step):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(JIT_FIT_STEPS):
+            step()
+        torch.cuda.synchronize()
+        return JIT_FIT_STEPS / (time.perf_counter() - t0)
+
+    turns = [(name, steps_per_s(fn)) for name, fn in (
+        ("eager", eager_step), ("compiled", compiled_step),
+        ("compiled", compiled_step), ("eager", eager_step))]
+    out = dict(loss_bitwise=loss_bits, grad_bitwise=grad_bits,
+               captures=grad_fn.captures, steps_per_s_in_turns=turns,
+               n_reflections=cfg.n_reflections, **graph.info())
+    log(f"[14d compiled fit step] {json.dumps(out)}")
+    check(all(loss_bits) and all(grad_bits),
+          f"14d: compiled loss {loss_bits} / gradient {grad_bits} not "
+          "bitwise against eager")
+    n = graph.launches
+    check(n.get("bin_bwd") == 1 and n.get("table_grad") == cfg.n_reflections
+          and all(n.get(k, 0) > 0 for k in ("prep_flat", "sweep", "bin")),
+          f"14d: the fit graph's launches {n}")
+    check(out["captures"] == 1, "14d: more than one capture")
+    return out, compiled_step, eager_step, graph
+
+
+def compiled_phase(dev, smi: str, host5, n_objects5: int, cfg5) -> dict:
+    """Phase 14, the compiled frame (module doc). The profiles (14c, the
+    fit step's idle share, 14e) are queued for phase 10."""
+    import torch
+
+    from radarays_ros_tpu_torch.geom.primitives import make_urban_scene
+    from radarays_ros_tpu_torch.geom.scene import Scene, with_planes
+    from radarays_ros_tpu_torch.sim import pipeline as P
+
+    t_phase = time.perf_counter()
+    out = dict(gpu=smi)
+    # a: the 10k companion (K4) on kernel and mxu, a small scene on brute
+    _, st10, params10, cfg10, _, _ = kaist_setup(dev, n_buildings=800)
+    out["a_10k_kernel"], g10 = jit_vs_eager("10k", st10, params10, cfg10,
+                                            BATCH)
+    cfg_mxu = cfg10.replace(trace_engine="mxu")
+    out["a_10k_mxu"], _ = jit_vs_eager("10k", with_planes(st10), params10,
+                                       cfg_mxu, BATCH)
+    parts, names = make_urban_scene(n_buildings=60, extent=60.0, seed=7)
+    small = Scene.compose(parts, names, chunk_size=256)
+    st_s, params_s = kaist_tensors(small.host_arrays(cache=False),
+                                   small.n_objects, dev)
+    out["a_small_brute"], _ = jit_vs_eager(
+        "small", st_s, params_s, cfg10.replace(trace_engine="brute"), 1)
+    del st10, st_s      # g10 holds its scene for the replay of 14e
+    # a: the 1M scene at batch 4 and batch 20
+    st, params = kaist_tensors(host5, n_objects5, dev)
+    out["a_1m_batch_4"], g4 = jit_vs_eager("1m", st, params, cfg5, BATCH)
+    out["a_1m_batch_20"], g20 = jit_vs_eager("1m", st, params, cfg5,
+                                             BENCH_BATCH)
+    for k in AT_1M:
+        check(g4.launches.get(k, 0) > 0 and g20.launches.get(k, 0) > 0,
+              f"14a: {k} not in the 1M graphs ({g20.launches})")
+    check(all(g10.launches.get(k, 0) > 0 for k in AT_10K),
+          f"14a: the 10k graph's launches {g10.launches}")
+
+    # b: frames/s eager against compiled, in turns; the compiled path's
+    # launches counted from 0 around its timed batches
+    speed = {}
+    for n in (BATCH, BENCH_BATCH):
+        c0 = P.frame_graphs.captures
+        turns, launches = [], None
+        for name in ("eager", "compiled", "compiled", "eager"):
+            fn = P.simulate_frames if name == "eager" else \
+                P.simulate_frames_jit
+            counted = name == "compiled" and launches is None
+            if counted:
+                wrappers = zero_counts()
+            turns.append((name, frames_per_s(fn, st, params, cfg5, n)))
+            if counted:
+                launches = read_counts(wrappers)
+        g = g4 if n == BATCH else g20
+        check(P.frame_graphs.captures == c0,
+              f"14b: a timed compiled batch of {n} captured")
+        check(launches == {k: JIT_TIMED * g.launches.get(k, 0)
+                           for k in launches},
+              f"14b: launches {launches} over {JIT_TIMED} replays of "
+              f"{g.launches}")
+        fps = {name: sorted(v["frames_per_s"] for m, v in turns
+                            if m == name) for name in ("eager", "compiled")}
+        speed[f"batch_{n}"] = dict(
+            turns=turns, launches_compiled=launches,
+            compiled_over_eager=(sum(fps["compiled"]) / sum(fps["eager"])))
+        log(f"[14b frames/s, batch {n}, 1M] {json.dumps(speed[f'batch_{n}'])}")
+    out["b_speed"] = speed
+
+    # a: a replay with new poses, materials and beam width, and a new cfg
+    kw = explicit_inputs(cfg5, BATCH, dev, seed=11)
+    m = params.materials
+    params2 = params._replace(
+        materials=type(m)(m.velocity, m.ambient * 0.8, m.diffuse + 0.1,
+                          m.specular * 0.5),
+        beam_width=params.beam_width * 1.2)
+    poses2 = poses_on(BATCH, dev) + torch.tensor(
+        [3.0, -2.0, 0.0, 0, 0, 0, 0], device=dev)
+    c0 = P.frame_graphs.captures
+    got = P.simulate_frames_jit(st, params2, cfg5, poses2, **kw)
+    want = P.simulate_frames(st, params2, cfg5, poses2, **kw)
+    base = P.simulate_frames(st, params, cfg5, poses_on(BATCH, dev), **kw)
+    new_values = dict(bitwise=frames_equal(got, want),
+                      differs_from_old_values=not frames_equal(got, base),
+                      captures=P.frame_graphs.captures - c0)
+    cfg_new = cfg5.replace(signal_max=90.0)
+    P.simulate_frames_jit(st, params, cfg_new, poses2, **kw)
+    new_values["captures_after_new_cfg"] = P.frame_graphs.captures - c0
+    out["a_new_values"] = new_values
+    log(f"[14a 1m, new poses and materials] {json.dumps(new_values)}")
+    check(new_values["bitwise"] and new_values["differs_from_old_values"]
+          and new_values["captures"] == 0
+          and new_values["captures_after_new_cfg"] == 1,
+          f"14a: a replay with new values: {new_values}")
+
+    # d: the fit's compiled value-and-grad
+    out["d_fit"], c_step, e_step, g_fit = compiled_fit(dev)
+
+    # keep the 1M batch-of-20 graph alone for the profile
+    for key in [k for k, g in P.frame_graphs.graphs.items() if g is not g20]:
+        del P.frame_graphs.graphs[key]
+    out["phase_s"] = time.perf_counter() - t_phase
+
+    def profiles():
+        poses = poses_on(BENCH_BATCH, dev)
+        c1 = P.frame_graphs.captures
+
+        def batch(fn):
+            return lambda: fn(st, params, cfg5, poses, generator=torch.
+                              Generator(dev).manual_seed(5))
+
+        with torch.no_grad():
+            replay = batch_profile(batch(P.simulate_frames_jit))
+            eager = batch_profile(batch(P.simulate_frames))
+        check(P.frame_graphs.captures == c1, "14c: the profile captured")
+        out["c_profile_batch_20"] = dict(compiled=replay, eager=eager)
+        log(f"[14c batch profile, 1M batch 20] "
+            f"{json.dumps(out['c_profile_batch_20'])}")
+        fit = dict(compiled=batch_profile(c_step),
+                   eager=batch_profile(e_step))
+        out["d_fit"]["step_profile"] = fit
+        log(f"[14d fit step profile] {json.dumps(fit)}")
+        counts = dict(
+            graph_1m_batch_20=profiled_counts(replay, g20, "1M"),
+            graph_10k=profiled_counts(batch_profile(
+                lambda: g10(g10.static_in)), g10, "10k"),
+            graph_fit=profiled_counts(fit["compiled"], g_fit, "fit"))
+        out["e_launch_counts"] = counts
+        log(f"[14e launches a replay, recorded vs profiler] "
+            f"{json.dumps(counts)}")
+        P.frame_graphs.clear()
+
+    DEFERRED.append(profiles)
+    log(f"[14 compiled frame] {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3223,6 +3583,18 @@ def main() -> int:
         print(json.dumps({"kernel_times": kernel_times(
             torch.device("cuda"), smi, sys.argv[3:] or ("5", "6"))}),
             flush=True)
+        return 0
+    if sys.argv[1:2] == ["--compiled"]:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout.strip().splitlines()[0]
+        dev = torch.device("cuda")
+        scene, _, _, cfg, _, host = kaist_setup(dev)
+        out = compiled_phase(dev, smi, host, scene.n_objects, cfg)
+        while DEFERRED:
+            DEFERRED.pop(0)()
+        print(json.dumps({"compiled": out}), flush=True)
         return 0
     if sys.argv[1:2] == ["--fit-profile"]:
         root = os.path.abspath(sys.argv[2]) if len(sys.argv) > 2 else HERE
@@ -3403,6 +3775,9 @@ def run(dev, run_cache: str) -> int:
     details["phase_9_s"] = time.perf_counter() - t0
     log(f"[9 trace extras] {details['phase_9_s']:.1f} s "
         f"{json.dumps(details['phase_9_parts_s'])}")
+
+    # ---- 14. the compiled frame and fit step (profiles in phase 10)
+    details["compiled"] = compiled_phase(dev, smi, host5, n_objects5, cfg5)
 
     # ---- 12. bench.py's ~10M-triangle scale, before the profiler
     huge, b12, launches12, bb12, k5_12, groups12 = huge_phase(

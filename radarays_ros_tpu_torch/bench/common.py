@@ -156,24 +156,19 @@ def best_and_trimmed(times: list) -> tuple:
     return ts[0], float(np.median(trimmed))
 
 
-def _wrappers() -> dict:
-    from radarays_ros_tpu_torch.image.cuda_draw import bin_bwd, bin_signals
-    from radarays_ros_tpu_torch.sim.lookup import table_grad
-    from radarays_ros_tpu_torch.trace import cuda_trace as CT
-
-    return dict(zip(KERNELS, (CT.sweep, CT.prep_hier, CT.coarse_words,
-                              CT.prep_flat, bin_signals, bin_bwd,
-                              table_grad)))
-
-
 def zero_launches() -> None:
-    for fn in _wrappers().values():
+    from radarays_ros_tpu_torch.sim.graphs import kernel_wrappers
+
+    for fn in kernel_wrappers().values():
         fn.launches = 0
 
 
 def read_launches() -> dict:
-    """Each kernel's launches since zero_launches (its wrapper's count)."""
-    return {k: fn.launches for k, fn in _wrappers().items()}
+    """Each kernel's launches since zero_launches (its wrapper's count;
+    a compiled call's replays count the launches its graph recorded)."""
+    from radarays_ros_tpu_torch.sim.graphs import launch_counts
+
+    return launch_counts()
 
 
 def radar_fan(n_rays: int, seed: int = 0, el_std: float = 0.06):

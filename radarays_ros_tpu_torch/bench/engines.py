@@ -135,10 +135,10 @@ def frames(st, params, engines, dev, n: int) -> dict:
     the noise-shape fields of bench.py), median of n fetch-forced frames
     after one warm-up: Hz and ms."""
     from radarays_ros_tpu_torch.sim.config import RadarModelConfig
-    from radarays_ros_tpu_torch.sim.pipeline import simulate_frame
+    from radarays_ros_tpu_torch.sim.pipeline import frames_entry
     from radarays_ros_tpu_torch.utils.transforms import make_pose
 
-    pose = torch.from_numpy(make_pose([0.0, 0.0, 2.0]))
+    pose = torch.from_numpy(make_pose([0.0, 0.0, 2.0])).to(dev)
     out = {}
     for engine in engines:
         cfg = RadarModelConfig(
@@ -151,6 +151,9 @@ def frames(st, params, engines, dev, n: int) -> dict:
             trace_ray_block=2048)
         sc = _engine_scene(st, engine)
         gen = torch.Generator(dev).manual_seed(0)
+        # compiled, as the reference's jitted frame (engines.py:176-201);
+        # eager for the plain "sweep" engine, which it refuses on the card
+        simulate_frame = frames_entry(cfg, dev, batched=False)
 
         def one(_i):
             return int(C.frame_checksum(simulate_frame(

@@ -15,7 +15,9 @@ JSON line is printed right after it; then the companions, within the wall
 budget RADARAYS_BENCH_BUDGET_S (default 2400 s), logged to stderr and
 written with the headline to --details.
 
-Protocols (`measure_scale`, bench.py:185-255): fenced — every timed batch
+Every batch runs the compiled frame (`simulate_frames_jit`: on the card
+one CUDA graph, captured in the warm-up batch and replayed), as bench.py
+runs its jitted batch. Protocols (`measure_scale`, bench.py:185-255): fenced — every timed batch
 ends in the fetch of its checksum (the sum of its u8 pixels), giving the
 best and the trimmed median; sustained — 10 batches queued back to back,
 every checksum fetched at the end. Each batch draws fresh random inputs
@@ -87,7 +89,7 @@ def measure_scale(n_buildings: int, n_iters: int = 7, batch: int = 20,
     n_triangles, rays_per_frame, trace_engine, batch, the kernels'
     launches over the timed batches, the timed batch count and every
     checksum."""
-    from radarays_ros_tpu_torch.sim.pipeline import simulate_frames
+    from radarays_ros_tpu_torch.sim.pipeline import frames_entry
     from radarays_ros_tpu_torch.trace.api import resolve_engine
     from radarays_ros_tpu_torch.utils.transforms import make_pose
 
@@ -95,9 +97,12 @@ def measure_scale(n_buildings: int, n_iters: int = 7, batch: int = 20,
     b = scene or C.build_benchmark(n_buildings, extent,
                                    cfg_overrides=cfg_overrides,
                                    chunk_size=chunk_size, device=dev)
+    # on the device, as bench.py's (a batch copies no host poses)
     poses = torch.from_numpy(np.tile(make_pose([0.0, 0.0, 2.0]),
-                                     (batch, 1)))
+                                     (batch, 1))).to(dev)
     gen = torch.Generator(dev).manual_seed(seed)
+    # the compiled frame, as bench.py's jitted batch (its :211-224)
+    simulate_frames = frames_entry(b.cfg, dev)
 
     def run(_i):
         return C.frame_checksum(simulate_frames(b.scene, b.params, b.cfg,

@@ -70,7 +70,7 @@ def fit_setup(n_buildings: int, n_frames: int, device, *,
                                                    RadarModelConfig,
                                                    RadarParams)
     from radarays_ros_tpu_torch.sim.pipeline import (float_u8_image,
-                                                     simulate_frames)
+                                                     frames_entry)
     from radarays_ros_tpu_torch.wave.cone import sample_cone_draws
 
     dev = torch.device(device)
@@ -98,7 +98,7 @@ def fit_setup(n_buildings: int, n_frames: int, device, *,
     true = params(TRUE_MATS, 10.0)
     poses = torch.from_numpy(poses)
     with torch.no_grad():
-        targets = float_u8_image(simulate_frames(
+        targets = float_u8_image(frames_entry(cfg, dev)(
             st, true, cfg, poses, cone_draws=cone_draws), cfg)
     return dict(scene=st, true=true, start=params(START_MATS, 7.0), cfg=cfg,
                 poses=poses, cone_draws=cone_draws, targets=targets,
@@ -163,7 +163,8 @@ def main(argv=None, *, cfg_overrides: Optional[dict] = None,
          cone_draws=None, extent: float = 150.0) -> list:
     """cfg_overrides, cone_draws and extent cut the run to size and fix
     its draws (tests). Returns the printed records."""
-    from radarays_ros_tpu_torch.opti.optimize import (default_objective,
+    from radarays_ros_tpu_torch.opti.optimize import (compiled,
+                                                      default_objective,
                                                       optimize_black_box)
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -190,7 +191,9 @@ def main(argv=None, *, cfg_overrides: Optional[dict] = None,
                    "n_triangles": s["scene"].n_triangles})]
     objective = default_objective(s["scene"], s["cfg"], s["poses"],
                                   s["targets"], cone_draws=s["cone_draws"])
-    true_db = -float(objective(s["true"]))
+    # the loss compiled where the reference jits it (its
+    # benchmarks/opti_scale.py:115, 160)
+    true_db = -float(compiled(objective)(s["true"]))
     target_db = (true_db - args.margin if args.margin is not None
                  else args.target_db)
     out.append(C.emit({"true_loss_db": true_db, "target_psnr_db": target_db}))
@@ -218,11 +221,11 @@ def main(argv=None, *, cfg_overrides: Optional[dict] = None,
 
     pv, start = s["pv"], s["start"]
 
+    loss_of_vec = compiled(lambda v: objective(pv.to_params(start, v)[0]))
+
     def f(v):
-        with torch.no_grad():
-            return float(objective(pv.to_params(
-                start, torch.as_tensor(v, dtype=torch.float32,
-                                       device=dev))[0]))
+        return float(loss_of_vec(torch.as_tensor(v, dtype=torch.float32,
+                                                 device=dev)))
 
     C.zero_launches()
     t0 = time.perf_counter()

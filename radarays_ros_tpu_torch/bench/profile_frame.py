@@ -4,8 +4,9 @@ the JAX repo's benchmarks/profile_frame.py).
     python -m radarays_ros_tpu_torch.bench.profile_frame [--device cpu]
         [--buildings 83000] [--top 25]
 
-One warm-up batch, then one fenced batch (its checksum fetched) under
-torch.profiler (CPU and, on the card, CUDA activity). Prints one JSON
+One warm-up batch (on the card, the compiled frame's capture), then one
+fenced batch (its checksum fetched; on the card, a replay of the graph)
+under torch.profiler (CPU and, on the card, CUDA activity). Prints one JSON
 line: the device time grouped by kernel-name prefix (the name up to its
 first template or argument list), the top device ops, the device's busy
 and idle share of the window from its first to its last event, the
@@ -113,12 +114,14 @@ def profile_batch(bench, dev: torch.device, batch: int = 20,
     """One warm-up batch of `batch` frames, then one under the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
-    from radarays_ros_tpu_torch.sim.pipeline import simulate_frames
+    from radarays_ros_tpu_torch.sim.pipeline import frames_entry
     from radarays_ros_tpu_torch.utils.transforms import make_pose
 
     poses = torch.from_numpy(np.tile(make_pose([0.0, 0.0, 2.0]),
-                                     (batch, 1)))
+                                     (batch, 1))).to(dev)
     gen = torch.Generator(dev).manual_seed(0)
+    # the compiled frame, as the reference profiles its jitted batch
+    simulate_frames = frames_entry(bench.cfg, dev)
 
     def run():
         return C.frame_checksum(simulate_frames(bench.scene, bench.params,

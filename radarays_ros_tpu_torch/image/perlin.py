@@ -13,6 +13,8 @@ which give the same values (each one-hot product picks exactly one term).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -51,6 +53,13 @@ def _hash_stack() -> np.ndarray:
 _HASH_STACK = _hash_stack()
 
 
+@functools.lru_cache(maxsize=None)
+def _on_device(name: str, device: torch.device) -> torch.Tensor:
+    """The table PERM or _HASH_STACK on `device`, copied there once a
+    process (not once a call: a CUDA graph cannot hold a host copy)."""
+    return torch.as_tensor(globals()[name], device=device)
+
+
 def _fade(t):
     return t * t * t * (t * (t * 6.0 - 15.0) + 10.0)
 
@@ -70,7 +79,7 @@ def perlin_noise(src_x, src_y, src_z=0.0) -> torch.Tensor:
     src_y = torch.as_tensor(src_y, dtype=torch.float32, device=dev)
     src_z = torch.as_tensor(src_z, dtype=torch.float32,
                             device=dev).expand(src_x.shape)
-    perm = torch.as_tensor(PERM, device=dev)
+    perm = _on_device("PERM", dev)
 
     fx, fy, fz = torch.floor(src_x), torch.floor(src_y), torch.floor(src_z)
     X = fx.to(torch.int64) & 255
@@ -187,7 +196,7 @@ def perlin_affine_rows(x0_int, y, scale: float, n_cells: int) -> torch.Tensor:
     v = _fade(yf)
 
     Xk = (x0_int[:, None] + torch.arange(K + 1, device=dev)[None, :]) & 255
-    hs = torch.as_tensor(_HASH_STACK, device=dev)
+    hs = _on_device("_HASH_STACK", dev)
     hashes = hs[Y[:, None], Xk]                          # (A, K+1, 4)
     aAA, bAA = _alpha_beta(hashes[..., 0])
     aAB, bAB = _alpha_beta(hashes[..., 1])

@@ -150,9 +150,12 @@ def cmd_simulate(args) -> int:
     fmt = args.format
 
     if args.batch > 1:
-        # throughput mode: multi-frame batches through simulate_frames, the
-        # random draws from one generator seeded with --seed
-        from radarays_ros_tpu_torch.sim.pipeline import simulate_frames
+        # throughput mode: multi-frame batches through the compiled frame
+        # (simulate_frames_jit, as the reference's), the random draws from
+        # one generator seeded with --seed
+        from radarays_ros_tpu_torch.sim.pipeline import frames_entry
+
+        frames = frames_entry(radar.cfg, dev)
 
         t_start = time.perf_counter()
         gen = torch.Generator(dev).manual_seed(args.seed)
@@ -167,9 +170,8 @@ def cmd_simulate(args) -> int:
             else:
                 poses = np.tile(identity_pose(), (B, 1))
             with torch.no_grad():
-                res = simulate_frames(radar._scene_tensors, radar.params,
-                                      radar.cfg, torch.from_numpy(poses),
-                                      generator=gen)
+                res = frames(radar._scene_tensors, radar.params, radar.cfg,
+                             torch.from_numpy(poses), generator=gen)
             imgs = res.image_u8.cpu().numpy()
             for j in range(B):
                 if done >= len(stamps):
@@ -284,7 +286,7 @@ def cmd_optimize(args) -> int:
     from radarays_ros_tpu_torch.opti.checkpoint import (load_checkpoint,
                                                         save_checkpoint)
     from radarays_ros_tpu_torch.opti.optimize import (
-        ParamVector, default_objective, optimize_black_box,
+        ParamVector, compiled, default_objective, optimize_black_box,
         optimize_gradient)
     from radarays_ros_tpu_torch.utils.transforms import (identity_pose,
                                                          make_pose)
@@ -319,8 +321,8 @@ def cmd_optimize(args) -> int:
         st, cfg, torch.from_numpy(pose), target,
         generator=torch.Generator(dev).manual_seed(args.seed))
 
-    with torch.no_grad():
-        init_loss = float(loss_of_params(params))
+    # compiled as the reference jits them (its io/cli.py:275-284)
+    init_loss = float(compiled(loss_of_params)(params))
     print(f"initial PSNR {-init_loss:.3f} dB")
 
     if args.method == "gradient":
@@ -329,9 +331,12 @@ def cmd_optimize(args) -> int:
         vec, value, history = res.vec, res.value, res.history
         fitted = res.params
     else:
+        loss_of_vec = compiled(
+            lambda v: loss_of_params(pv.to_params(params, v)[0]))
+
         def f(v):
-            with torch.no_grad():
-                return float(loss_of_params(pv.to_params(params, v)[0]))
+            return float(loss_of_vec(torch.as_tensor(v, dtype=torch.float32,
+                                                     device=dev)))
 
         vec, value, history = optimize_black_box(
             f, pv.bounds(), n_seeds=max(args.steps // 4, 4),
@@ -603,8 +608,8 @@ def build_parser() -> argparse.ArgumentParser:
     sim.add_argument("--frames", type=int, default=1)
     sim.add_argument("--batch", type=int, default=1,
                      help="render frames in batches of this size through "
-                          "simulate_frames (throughput mode; incompatible "
-                          "with include_motion)")
+                          "simulate_frames_jit (throughput mode; "
+                          "incompatible with include_motion)")
     sim.add_argument("--rate", type=float, default=4.0,
                      help="free-running frame rate [Hz] (stamp spacing)")
     sim.add_argument("--synced", action="store_true",

@@ -82,11 +82,14 @@ def evaluate_real_vs_sim(real, scene, params, cfg, traj,
     stamp on the scene's device and score the metric suite, logging the
     sync error. Real stamps outside the trajectory are clamped to its ends
     (counted as out_of_traj). The frames' random draws come from one
-    torch.Generator(seed) that advances frame by frame."""
-    from radarays_ros_tpu_torch.sim.pipeline import simulate_frame
+    torch.Generator(seed) that advances frame by frame; they render
+    through the compiled frame (simulate_frame_jit, as the reference's),
+    or the eager one for a config it refuses."""
+    from radarays_ros_tpu_torch.sim.pipeline import frames_entry
 
     n = len(real) if limit is None else min(limit, len(real))
     gen = torch.Generator(scene.device).manual_seed(seed)
+    simulate_frame = frames_entry(cfg, scene.device, batched=False)
     t_lo, t_hi = float(traj.stamps[0]), float(traj.stamps[-1])
 
     per_frame = []

@@ -6,7 +6,11 @@ radarays_ros_tpu/opti/optimize.py, after scripts/radaray_opti.py).
     sigmoid-reparameterized vector, gradients flowing through the whole
     frame: cone directions -> trace refinement -> Fresnel -> shading ->
     binning (K5's backward). n_reflections is a static parameter held fixed
-    per run (sweep it outside, `sweep_n_reflections`).
+    per run (sweep it outside, `sweep_n_reflections`). Each step's loss
+    and gradient are one compiled call, `value_and_grad` (a CUDA graph on
+    the card, sim/graphs.py), as the reference jits its grad_fn;
+    `compiled` is the same for a loss alone (the reference's
+    jax.jit(loss_of_params)).
   * `optimize_black_box` — the reference's derivative-free fallback
     (Halton seeding + Nelder-Mead polish), NumPy, unchanged.
 
@@ -25,6 +29,7 @@ import torch
 
 from radarays_ros_tpu_torch.opti.metrics import psnr
 from radarays_ros_tpu_torch.sim.config import RadarModelConfig, RadarParams
+from radarays_ros_tpu_torch.sim.graphs import Compiled
 from radarays_ros_tpu_torch.sim.pipeline import (float_u8_image,
                                                  simulate_frames)
 
@@ -90,7 +95,8 @@ class ParamVector:
             off += 1
         cols = list(m)
         for i, s in enumerate(self.material_slots):
-            ix = torch.tensor([s], device=dev)
+            # filled in on the device: no host copy a step
+            ix = torch.full((1,), s, dtype=torch.int64, device=dev)
             for j in range(4):
                 cols[j] = cols[j].index_put(
                     (ix,), vec[off + 4 * i + j].reshape(1))
@@ -115,7 +121,8 @@ def default_objective(scene, cfg: RadarModelConfig, poses, target_u8, *,
     `generator` (a seed-0 generator on the scene's device by default).
     """
     dev = scene.device
-    poses = torch.as_tensor(poses, dtype=torch.float32)
+    # on the device once, not copied there by every evaluation
+    poses = torch.as_tensor(poses, dtype=torch.float32, device=dev)
     target = torch.as_tensor(target_u8, dtype=torch.float32, device=dev)
     if poses.dim() == 1:
         def one(x):
@@ -191,6 +198,36 @@ def step_loss_fn(loss_of_params: Callable[[RadarParams], torch.Tensor],
     return step_loss, to_vec, to_z
 
 
+def compiled(fn: Callable) -> Compiled:
+    """fn (a function of tensors and NamedTuples of them, e.g. a loss of
+    RadarParams) as a compiled call, without autograd: one CUDA graph a
+    signature of its arguments on their card, eager on CPU tensors
+    (sim/graphs.py) — the reference's jax.jit(loss_of_params)."""
+    def run(*args):
+        with torch.no_grad():
+            return fn(*args)
+
+    return Compiled(run)
+
+
+def value_and_grad(fn: Callable[[torch.Tensor], torch.Tensor]
+                   ) -> Compiled:
+    """z -> (fn(z), d fn / d z), detached, as one compiled call: the
+    forward and the backward of fn in one CUDA graph on the card (the
+    backward kernels, rr_bin_bwd and rr_table_grad, launch on the
+    capturing stream), eager on the CPU — the reference's
+    jax.jit(jax.value_and_grad(step_loss)) (opti/optimize.py:170-177).
+    fn's closed-over tensors are read in place."""
+    def vg(z):
+        with torch.enable_grad():
+            z = z.detach().requires_grad_(True)
+            loss = fn(z)
+            g, = torch.autograd.grad(loss, z)
+        return loss.detach(), g
+
+    return Compiled(vg)
+
+
 def optimize_gradient(loss_of_params: Callable[[RadarParams], torch.Tensor],
                       params_init: RadarParams,
                       pv: Optional[ParamVector] = None,
@@ -198,18 +235,26 @@ def optimize_gradient(loss_of_params: Callable[[RadarParams], torch.Tensor],
                       verbose: bool = False) -> OptResult:
     """Adam on the sigmoid-reparameterized param vector, on the device of
     params_init. loss_of_params: differentiable scalar loss of RadarParams
-    (e.g. from default_objective with cfg/n_reflections baked in)."""
+    (e.g. from default_objective with cfg/n_reflections baked in). Each
+    step's loss and gradient come from one compiled call
+    (`value_and_grad`: a CUDA graph on the card); Adam's update is eager,
+    as optax's is in the reference."""
     pv = pv or ParamVector(tune_n_reflections=False)
+    if pv.tune_n_reflections:
+        raise ValueError(
+            "optimize_gradient: tune_n_reflections reads the bounce count "
+            "on the host in every loss, which the compiled step cannot (nor "
+            "can the reference's jit): hold it fixed and sweep it outside "
+            "(sweep_n_reflections)")
     step_loss, to_vec, to_z = step_loss_fn(loss_of_params, params_init, pv)
+    grad_fn = value_and_grad(step_loss)
     z = to_z(pv.to_vec(params_init)).requires_grad_(True)
     opt = torch.optim.Adam([z], lr=lr, betas=(0.9, 0.999), eps=1e-8)
     history = []
     best = (np.inf, z.detach().clone())
     for i in range(steps):
-        opt.zero_grad()
-        loss = step_loss(z)
-        loss.backward()
-        val = loss.detach().item()
+        loss, z.grad = grad_fn(z)
+        val = loss.item()
         history.append(val)
         if val < best[0]:
             best = (val, z.detach().clone())

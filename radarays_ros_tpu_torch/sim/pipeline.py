@@ -24,10 +24,17 @@ Differentiable w.r.t. the material table and the beam width (through the
 cone directions built from the draws, the Moller-Trumbore refinement of
 each hit, the material lookup of sim/lookup.py, shading and binning), as
 the reference's frame is.
+
+The compiled entries `simulate_frame_jit` and `simulate_frames_jit` (the
+reference's jitted frame: one program a config) replay a CUDA graph of
+the same frame on the card (sim/graphs.py) and run the eager frame on the
+CPU; the frame makes no host copy and no host sync on the card, so that
+a graph can hold it.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import NamedTuple, Optional
 
 import torch
@@ -36,6 +43,7 @@ from radarays_ros_tpu_torch.geom.scene import SceneTensors
 from radarays_ros_tpu_torch.image.draw import (apply_ambient_noise,
                                                draw_signals, normalize_to_u8)
 from radarays_ros_tpu_torch.sim.config import RadarModelConfig, RadarParams
+from radarays_ros_tpu_torch.sim.graphs import Compiled
 from radarays_ros_tpu_torch.sim.lookup import material_lookup
 from radarays_ros_tpu_torch.parallel.groups import axis_group
 from radarays_ros_tpu_torch.trace.api import (combine_trace_shards,
@@ -262,35 +270,53 @@ def start_waves(params: RadarParams, cfg: RadarModelConfig, poses, *,
     R_sm, t_sm = pose_matrix(poses)                       # (N, A, 3, 3)
     R_am = torch.matmul(R_sm, rotz(azimuth_angles(A, device)))
     dirs0 = torch.einsum("naij,nsj->nasi", R_am, local_dirs)
-    sensor_pos = t_sm + torch.tensor([0.0, 0.0, cfg.z_offset], device=device)
+    # (0, 0, z_offset) made on the device: no host copy a frame
+    offset = torch.zeros(3, device=device)
+    offset[2:].fill_(cfg.z_offset)
+    sensor_pos = t_sm + offset
     waves = broadcast_waves(
         sensor_pos[:, :, None, :], dirs0,
         make_start_wave_attrs(material_id=cfg.material_id_air), (N, A, S))
     return waves, sensor_pos
 
 
-def simulate_frames(scene: SceneTensors, params: RadarParams,
-                    cfg: RadarModelConfig, poses, *,
-                    local_dirs: Optional[torch.Tensor] = None,
-                    cone_draws=None,
-                    random_begin: Optional[torch.Tensor] = None,
-                    uniform: Optional[torch.Tensor] = None,
-                    generator: Optional[torch.Generator] = None
-                    ) -> FrameResult:
-    """A batch of N frames on the scene's device.
+def _draw_absent(cfg: RadarModelConfig, N: int, device, local_dirs,
+                 cone_draws, random_begin, uniform, generator):
+    """The random inputs a frame batch of N needs and was not given, drawn
+    from `generator` in simulate_frames' order: the cone draws frame by
+    frame (without local_dirs), then the Perlin offsets (ambient noise 2)
+    or the uniform field (1). Returns (local_dirs, cone_draws,
+    random_begin, uniform); an input the frame does not read is None."""
+    A, n_cells = cfg.n_angles, cfg.n_cells
+    if local_dirs is not None:
+        cone_draws = None
+    elif cone_draws is None:
+        draws = [sample_cone_draws(generator, cfg.n_samples,
+                                   cfg.beam_sample_dist) for _ in range(N)]
+        cone_draws = tuple(torch.stack(d) for d in zip(*draws))
+    if cfg.ambient_noise != 2:
+        random_begin = None
+    elif random_begin is None:
+        random_begin = torch.randint(0, 1000, (N, A), generator=generator,
+                                     device=device)
+    if cfg.ambient_noise != 1:
+        uniform = None
+    elif uniform is None:
+        uniform = torch.rand((N, A, n_cells), generator=generator,
+                             device=device)
+    return local_dirs, cone_draws, random_begin, uniform
 
-    poses: (N, 7) one pose per frame or (N, n_angles, 7) per-azimuth poses.
-    local_dirs: (S, 3) or (N, S, 3) beam-frame cone directions, or
-    cone_draws: (theta, radial) each (S,) or (N, S) (see start_waves);
-    random_begin: (N, A) Perlin row offsets; uniform: (N, A, n_cells)
-    field — each drawn from `generator` when absent (and needed).
-    Returns FrameResult with a leading N axis on every field.
-    """
+
+def _frames(scene: SceneTensors, params: RadarParams, cfg: RadarModelConfig,
+            poses, local_dirs, cone_draws, random_begin, uniform
+            ) -> FrameResult:
+    """The frame batch on explicit random inputs (those _draw_absent
+    returns): simulate_frames' body, and what the compiled entries
+    capture."""
     dev = scene.device
     A, n_cells = cfg.n_angles, cfg.n_cells
     waves, sensor_pos = start_waves(params, cfg, poses, local_dirs=local_dirs,
-                                    cone_draws=cone_draws,
-                                    generator=generator, device=dev)
+                                    cone_draws=cone_draws, device=dev)
     N = waves.batch_shape[0]
     times, strengths, valid = collect_signals(scene, params, cfg, waves,
                                               sensor_pos)
@@ -303,12 +329,6 @@ def simulate_frames(scene: SceneTensors, params: RadarParams,
     img = img * cfg.energy_max                           # RadarCPU.cpp:453
 
     cols = (cfg.scroll_image + torch.arange(A, device=dev)) % A
-    if cfg.ambient_noise == 2 and random_begin is None:
-        random_begin = torch.randint(0, 1000, (N, A), generator=generator,
-                                     device=dev)
-    if cfg.ambient_noise == 1 and uniform is None:
-        uniform = torch.rand((N, A, n_cells), generator=generator,
-                             device=dev)
     img = apply_ambient_noise(
         img, max_val, cols.repeat(N), mode=cfg.ambient_noise,
         resolution=cfg.resolution,
@@ -335,6 +355,29 @@ def simulate_frames(scene: SceneTensors, params: RadarParams,
                        max_val=max_val.view(N, A))
 
 
+def simulate_frames(scene: SceneTensors, params: RadarParams,
+                    cfg: RadarModelConfig, poses, *,
+                    local_dirs: Optional[torch.Tensor] = None,
+                    cone_draws=None,
+                    random_begin: Optional[torch.Tensor] = None,
+                    uniform: Optional[torch.Tensor] = None,
+                    generator: Optional[torch.Generator] = None
+                    ) -> FrameResult:
+    """A batch of N frames on the scene's device.
+
+    poses: (N, 7) one pose per frame or (N, n_angles, 7) per-azimuth poses.
+    local_dirs: (S, 3) or (N, S, 3) beam-frame cone directions, or
+    cone_draws: (theta, radial) each (S,) or (N, S) (see start_waves);
+    random_begin: (N, A) Perlin row offsets; uniform: (N, A, n_cells)
+    field — each drawn from `generator` when absent (and needed).
+    Returns FrameResult with a leading N axis on every field.
+    """
+    N = torch.as_tensor(poses).shape[0]
+    return _frames(scene, params, cfg, poses, *_draw_absent(
+        cfg, N, scene.device, local_dirs, cone_draws, random_begin, uniform,
+        generator))
+
+
 def simulate_frame(scene: SceneTensors, params: RadarParams,
                    cfg: RadarModelConfig, pose, *,
                    local_dirs: Optional[torch.Tensor] = None,
@@ -346,14 +389,128 @@ def simulate_frame(scene: SceneTensors, params: RadarParams,
     """One frame at a (7,) pose or (n_angles, 7) per-azimuth poses; the
     explicit random inputs are unbatched ((S, 3), ((S,), (S,)), (A,),
     (A, n_cells))."""
+    return _one_frame(simulate_frames, scene, params, cfg, pose,
+                      local_dirs=local_dirs, cone_draws=cone_draws,
+                      random_begin=random_begin, uniform=uniform,
+                      generator=generator)
+
+
+def _one_frame(frames, scene, params, cfg, pose, *, random_begin, uniform,
+               **kw) -> FrameResult:
+    """A frame as the batch of one of `frames`."""
     def one(x):
         return None if x is None else torch.as_tensor(x)[None]
 
-    res = simulate_frames(scene, params, cfg, one(pose),
-                          local_dirs=local_dirs, cone_draws=cone_draws,
-                          random_begin=one(random_begin),
-                          uniform=one(uniform), generator=generator)
+    res = frames(scene, params, cfg, one(pose), random_begin=one(random_begin),
+                 uniform=one(uniform), **kw)
     return FrameResult(*(x[0] for x in res))
+
+
+# ------------------------------------------------- the compiled entries
+
+class JitRefused(ValueError):
+    """A configuration the compiled entries do not capture on the card
+    (jit_refusal): raised before anything runs."""
+
+
+def jit_refusal(cfg: RadarModelConfig) -> Optional[str]:
+    """Why simulate_frame(s)_jit refuses `cfg` on the card, or None. The
+    plain "sweep" engine ends its chunk loop on a host test each visit
+    rank (trace/cuda_trace.py:_sweep_plain), and a scene-sharded layout
+    merges its ranks' traces by gloo collectives: a CUDA graph holds
+    neither. Callers that take such configs run the eager entries."""
+    if cfg.trace_engine == "sweep":
+        return ("trace_engine 'sweep' (the plain ranked sweep) tests "
+                "bool(active.any()) on the host every visit rank")
+    if cfg.trace_scene_axis is not None \
+            and axis_group(cfg.trace_scene_axis) is not None:
+        return (f"trace_scene_axis {cfg.trace_scene_axis!r} names a process "
+                "group: its trace merges are collectives")
+    return None
+
+
+def frames_entry(cfg: RadarModelConfig, device, batched: bool = True):
+    """The frame entry a caller of `cfg` on `device` runs: the compiled
+    one, or the eager one where the compiled one refuses cfg on the card
+    (jit_refusal; said once a reason, as a warning)."""
+    reason = jit_refusal(cfg) if torch.device(device).type == "cuda" \
+        else None
+    if reason is None:
+        return simulate_frames_jit if batched else simulate_frame_jit
+    warnings.warn(f"the compiled frame refuses this config ({reason}): "
+                  "running the eager frame", stacklevel=2)
+    return simulate_frames if batched else simulate_frame
+
+
+def _frames_nograd(scene, cfg, params, *inputs) -> FrameResult:
+    with torch.no_grad():
+        return _frames(scene, params, cfg, *inputs)
+
+
+# the frame graphs of the process (the jit cache of the reference's
+# simulate_frames_jit), keyed on the scene's identity and shapes, cfg, and
+# the arguments' structure, shapes and dtypes (Compiled.key)
+frame_graphs = Compiled(_frames_nograd)
+
+
+def _frame_args(params, poses, local_dirs, cone_draws, random_begin,
+                uniform) -> tuple:
+    """The compiled frame's arguments, in the dtypes the eager frame
+    takes them in."""
+    def f32(x):
+        return None if x is None else torch.as_tensor(x, dtype=torch.float32)
+
+    return (params, f32(poses), f32(local_dirs),
+            None if cone_draws is None else tuple(map(f32, cone_draws)),
+            None if random_begin is None else torch.as_tensor(random_begin),
+            f32(uniform))
+
+
+def simulate_frames_jit(scene: SceneTensors, params: RadarParams,
+                        cfg: RadarModelConfig, poses, *,
+                        local_dirs: Optional[torch.Tensor] = None,
+                        cone_draws=None,
+                        random_begin: Optional[torch.Tensor] = None,
+                        uniform: Optional[torch.Tensor] = None,
+                        generator: Optional[torch.Generator] = None
+                        ) -> FrameResult:
+    """simulate_frames as one CUDA graph on the card (the reference's
+    simulate_frames_jit), with its arguments and results; the results
+    carry no autograd history (differentiate through
+    opti.optimize.value_and_grad).
+
+    Absent random inputs are drawn from `generator` first, as
+    simulate_frames draws them, so that both agree bit for bit on one
+    seed. On the card the batch replays its graph in frame_graphs —
+    captured on its first call, after an eager warm-up whose result that
+    call returns (sim/graphs.py) — with the poses, random inputs and
+    params copied in; a config jit_refusal names raises JitRefused before
+    anything runs. On the CPU it is the eager frame."""
+    poses = torch.as_tensor(poses, dtype=torch.float32)
+    args = _frame_args(params, poses, *_draw_absent(
+        cfg, poses.shape[0], scene.device, local_dirs, cone_draws,
+        random_begin, uniform, generator))
+    reason = jit_refusal(cfg) if scene.device.type == "cuda" else None
+    if reason is not None:
+        raise JitRefused(f"simulate_frames_jit: {reason}; run "
+                         "simulate_frames")
+    return frame_graphs(*args, static=(scene, cfg))
+
+
+def simulate_frame_jit(scene: SceneTensors, params: RadarParams,
+                       cfg: RadarModelConfig, pose, *,
+                       local_dirs: Optional[torch.Tensor] = None,
+                       cone_draws=None,
+                       random_begin: Optional[torch.Tensor] = None,
+                       uniform: Optional[torch.Tensor] = None,
+                       generator: Optional[torch.Generator] = None
+                       ) -> FrameResult:
+    """simulate_frame through simulate_frames_jit (the reference's
+    simulate_frame_jit): one frame, the batch of one."""
+    return _one_frame(simulate_frames_jit, scene, params, cfg, pose,
+                      local_dirs=local_dirs, cone_draws=cone_draws,
+                      random_begin=random_begin, uniform=uniform,
+                      generator=generator)
 
 
 def float_u8_image(res: FrameResult, cfg: RadarModelConfig) -> torch.Tensor:

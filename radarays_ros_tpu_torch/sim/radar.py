@@ -12,6 +12,11 @@ is drawn anew for every frame from its own generator; `simulate(...,
 reseed=False)` restores that generator's state and so repeats the previous
 frame's noise (the reference's reuse of its noise key).
 
+Frames run through the compiled entry (`simulate_frame_jit`: a CUDA graph
+a config and pose shape on the card, replayed with the new pose, draws and
+params; pipeline.frames_entry picks the eager frame for the configs it
+refuses), as the reference's Radar runs simulate_frame_jit.
+
 Poses are explicit arguments, (7,) or (n_angles, 7) per azimuth for
 include_motion. A frame without a pose is the pose-failure fallback of
 Radar.cpp:102-121: with a stamp and the last two stamped poses it
@@ -31,7 +36,7 @@ import torch
 from radarays_ros_tpu_torch.geom.scene import Scene, bake_tri_aux, with_planes
 from radarays_ros_tpu_torch.sim.config import (Materials, RadarModelConfig,
                                                RadarParams, default_params)
-from radarays_ros_tpu_torch.sim.pipeline import FrameResult, simulate_frame
+from radarays_ros_tpu_torch.sim.pipeline import FrameResult, frames_entry
 from radarays_ros_tpu_torch.utils.transforms import identity_pose
 from radarays_ros_tpu_torch.wave.cone import sample_cone_draws
 
@@ -172,10 +177,12 @@ class Radar:
             self._cone_draws = sample_cone_draws(
                 self._cone_gen, cfg.n_samples, cfg.beam_sample_dist)
         t0 = time.perf_counter()
-        res = simulate_frame(self._scene_tensors, self.params, cfg,
-                             torch.as_tensor(self._last_pose),
-                             cone_draws=self._cone_draws,
-                             generator=self._noise_gen)
+        # the compiled frame (a CUDA graph a config on the card), as the
+        # reference's simulate_frame_jit; eager for the configs it refuses
+        frame = frames_entry(cfg, self.device, batched=False)
+        res = frame(self._scene_tensors, self.params, cfg,
+                    torch.as_tensor(self._last_pose),
+                    cone_draws=self._cone_draws, generator=self._noise_gen)
         if self.verbose_timing:
             # the per-frame print of the reference engines
             # (RadarCPU.cpp:550-553); fenced, so only when asked for

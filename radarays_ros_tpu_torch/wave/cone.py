@@ -18,6 +18,7 @@ is applied as R = Rz(beta) @ Ry(alpha) to the mean direction.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -52,8 +53,17 @@ def sample_cone_draws(gen: torch.Generator, n_samples: int,
     return theta, draw(n_samples, generator=gen, device=device)
 
 
+@functools.lru_cache(maxsize=None)
+def _z_score(p_in_cone: float) -> float:
+    """sqrt(2) * erfinv(p_in_cone), rounded to f32 on the host once."""
+    return float(math.sqrt(2.0) * erfinvf(torch.tensor(p_in_cone)))
+
+
 def _radii(radial, radius, sample_dist: int, p_in_cone):
-    z = math.sqrt(2.0) * erfinvf(torch.tensor(p_in_cone)).to(radial.device)
+    # filled in on the device: no host copy a frame, so a CUDA graph can
+    # hold it (the f32 value the host computed, as before)
+    z = torch.full((), _z_score(float(p_in_cone)), dtype=torch.float32,
+                   device=radial.device)
     if sample_dist == 0:
         return radial * radius
     if sample_dist == 1:
@@ -84,8 +94,9 @@ def cone_dirs(theta, radial, mean_dir, width, sample_dist: int, p_in_cone):
 
 def cone_local(theta, radial, width, sample_dist: int, p_in_cone):
     """(..., 3) beam-frame directions around +x from explicit draws."""
-    return cone_dirs(theta, radial, [1.0, 0.0, 0.0], width, sample_dist,
-                     p_in_cone)
+    # +x made on the device (no host copy a frame)
+    x_axis = torch.eye(3, dtype=torch.float32, device=theta.device)[0]
+    return cone_dirs(theta, radial, x_axis, width, sample_dist, p_in_cone)
 
 
 def sample_cone_offsets(gen: torch.Generator, width, n_samples: int,

@@ -38,5 +38,5 @@ def quantile(p) -> torch.Tensor:
     (radar_math.h:46-49): the z-score within which a fraction p of normal
     samples falls."""
     p = torch.as_tensor(p, dtype=torch.float32)
-    return torch.sqrt(torch.tensor(2.0, device=p.device)) \
-        * erfinvf(2.0 * p - 1.0)
+    two = torch.full((), 2.0, device=p.device)    # no host copy a call
+    return torch.sqrt(two) * erfinvf(2.0 * p - 1.0)

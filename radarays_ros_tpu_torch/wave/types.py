@@ -31,8 +31,11 @@ class Waves(NamedTuple):
 
     def move(self, distance) -> "Waves":
         """orig += dir * d; time += d / velocity (radar_types.h:108-113)."""
-        d = torch.as_tensor(distance, dtype=self.orig.dtype,
-                            device=self.orig.device)
+        # a Python distance is filled in on the device (no host copy a
+        # bounce, so a CUDA graph can hold it): the same f32 value as
+        # as_tensor would copy there
+        d = distance if torch.is_tensor(distance) else torch.full(
+            (), distance, dtype=self.orig.dtype, device=self.orig.device)
         return self._replace(
             orig=self.orig + self.dir * d[..., None],
             time=self.time + d / self.velocity,

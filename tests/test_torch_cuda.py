@@ -518,6 +518,7 @@ def test_steady_fit_step_launches_no_index_backward(small_scene, dev):
     and K5's backward once."""
     from torch.profiler import ProfilerActivity, profile
 
+    from radarays_ros_tpu_torch.geom.scene import INVALID_OBJ_ID
     from radarays_ros_tpu_torch.opti import optimize as O
     from radarays_ros_tpu_torch.sim.config import (Materials,
                                                    RadarModelConfig,
@@ -836,7 +837,9 @@ def test_bench_profile_frame_on_card(dev, capsys):
     assert 0.0 <= p["device_idle_share"] < 1.0 and p["kernels"] > 0
     # K1's launches are grouped under its own name
     assert "sweep_kernel" in [g["op"] for g in p["top_groups"]]
-    assert p["bin_calls"] == 1
+    # the profiled batch replays the compiled frame: no host call of
+    # bin_signals, K5 inside the graph (counted by _launched)
+    assert p["bin_calls"] == 0
     _launched(p, _AT_HIER)
     capsys.readouterr()
 
@@ -929,3 +932,254 @@ def test_bench_order_ab_hw_on_card(dev, capsys):
             assert r["marginal_trace_ms"] > 0
             _launched(r, ("sweep",))
     capsys.readouterr()
+
+
+# ------------------------------------------------- the compiled frame
+
+def _jit_case(small_scene, dev, **kw):
+    """A small KAIST-like frame batch of 2 on the flat-prep scene: (cfg,
+    params, poses on the card)."""
+    from radarays_ros_tpu_torch.geom.scene import INVALID_OBJ_ID
+    from radarays_ros_tpu_torch.sim.config import (Materials,
+                                                   RadarModelConfig,
+                                                   RadarParams)
+    from radarays_ros_tpu_torch.utils.transforms import make_pose
+
+    ids = small_scene.obj_ids
+    n_obj = int(ids[ids != INVALID_OBJ_ID].max()) + 1
+    params = RadarParams.make(Materials.from_list([
+        dict(velocity=0.3, ambient=1.0, diffuse=0.0, specular=1.0),
+        dict(velocity=0.0, ambient=1.0, diffuse=0.0, specular=3000.0)],
+        device=dev), np.ones(n_obj, np.int32), 10.0)
+    cfg = RadarModelConfig(**{**dict(
+        n_angles=64, n_cells=512, resolution=0.1, n_samples=8,
+        n_reflections=3, ambient_noise=2,
+        signal_denoising_triangular_width=15, trace_engine="kernel"), **kw})
+    poses = torch.from_numpy(np.stack([make_pose([0.5, 0.5, 2.0]),
+                                       make_pose([-1.0, 0.5, 2.0])])).to(dev)
+    return cfg, params, poses
+
+
+def _frames_equal(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("engine", ["kernel", "mxu", "brute"])
+def test_compiled_frames_equal_eager_on_card(small_scene, dev, engine):
+    """simulate_frames_jit on the card: the first call captures (and returns
+    the eager warm-up), the later ones replay the graph; every batch is the
+    eager batch bit for bit on the same generator seed, with one capture."""
+    from radarays_ros_tpu_torch.geom.scene import with_planes
+    from radarays_ros_tpu_torch.sim import pipeline as P
+
+    cfg, params, poses = _jit_case(small_scene, dev, trace_engine=engine)
+    st = with_planes(small_scene) if engine == "mxu" else small_scene
+    c0 = P.frame_graphs.captures
+    for seed in range(3):
+        got = P.simulate_frames_jit(
+            st, params, cfg, poses,
+            generator=torch.Generator(dev).manual_seed(seed))
+        want = P.simulate_frames(
+            st, params, cfg, poses,
+            generator=torch.Generator(dev).manual_seed(seed))
+        assert got.image_u8.max() > 0 and _frames_equal(got, want)
+    assert P.frame_graphs.captures - c0 == 1
+    assert P.frame_graphs.last().replays == 2
+
+
+def test_compiled_frame_replays_new_values_without_capture(small_scene,
+                                                           dev):
+    """New poses, materials and beam width replay the graph (no capture)
+    and give the eager frame for those values; a returned batch is not
+    overwritten by the next call; a new cfg captures a second graph."""
+    from radarays_ros_tpu_torch.sim import pipeline as P
+    from radarays_ros_tpu_torch.sim.config import Materials
+
+    cfg, params, poses = _jit_case(small_scene, dev)
+    g = torch.Generator(dev).manual_seed(0)
+    draws = tuple(torch.rand(2, 8, generator=g, device=dev) for _ in "tr")
+    begin = torch.randint(0, 1000, (2, 64), generator=g, device=dev)
+    kw = dict(cone_draws=draws, random_begin=begin)
+    first = P.simulate_frames_jit(small_scene, params, cfg, poses, **kw)
+    keep = [x.clone() for x in first]
+    c0 = P.frame_graphs.captures
+    m = params.materials
+    params2 = params._replace(
+        materials=Materials(m.velocity, m.ambient * 0.8, m.diffuse + 0.1,
+                            m.specular * 0.5),
+        beam_width=params.beam_width * 1.5)
+    poses2 = poses + torch.tensor([0.7, -0.4, 0.0, 0, 0, 0, 0], device=dev)
+    got = P.simulate_frames_jit(small_scene, params2, cfg, poses2, **kw)
+    want = P.simulate_frames(small_scene, params2, cfg, poses2, **kw)
+    assert P.frame_graphs.captures == c0
+    assert _frames_equal(got, want) and not _frames_equal(got, first)
+    assert _frames_equal(first, keep)
+    P.simulate_frames_jit(small_scene, params, cfg.replace(signal_max=90.0),
+                          poses, **kw)
+    assert P.frame_graphs.captures == c0 + 1
+
+
+def test_radar_compiled_frames_follow_new_object_materials(dev):
+    """Radar.load_materials bakes a new scene (the per-triangle material
+    column) every time, and the old one is dropped: each compiled frame
+    after a change is the eager frame of the new scene, bit for bit, so
+    no graph reads a freed or an earlier scene's tables."""
+    import gc
+
+    from radarays_ros_tpu_torch.sim import pipeline as P
+    from radarays_ros_tpu_torch.sim.config import RadarModelConfig
+    from radarays_ros_tpu_torch.sim.radar import Radar
+    from radarays_ros_tpu_torch.utils.transforms import make_pose
+
+    parts, names = make_urban_scene(n_buildings=20, extent=40.0, seed=1)
+    scene = Scene.compose(parts, names, chunk_size=64)
+    cfg = RadarModelConfig(n_angles=64, n_cells=512, resolution=0.1,
+                           n_samples=8, n_reflections=3, ambient_noise=0,
+                           signal_denoising_triangular_width=15,
+                           trace_engine="kernel")
+    radar = Radar(scene, cfg=cfg, device=dev)
+    mats = [dict(velocity=0.3, ambient=1.0, diffuse=0.0, specular=1.0),
+            dict(velocity=0.0, ambient=1.0, diffuse=0.0, specular=3000.0),
+            dict(velocity=0.0, ambient=0.3, diffuse=0.6, specular=20.0)]
+    n_obj = radar.params.object_materials.shape[0]
+    pose = make_pose([0.5, 0.5, 2.0])
+    frames = []
+    for i in range(5):
+        radar.load_materials(mats, (np.arange(n_obj) + i) % 2 + 1)
+        gc.collect()
+        torch.cuda.empty_cache()
+        got = radar.simulate(pose)
+        want = P.simulate_frame(radar._scene_tensors, radar.params,
+                                radar.cfg, torch.as_tensor(pose),
+                                cone_draws=radar._cone_draws)
+        assert got.image_u8.max() > 0 and _frames_equal(got, want), i
+        frames.append(got)
+    assert not _frames_equal(frames[0], frames[1])
+    assert _frames_equal(frames[0], frames[2])
+
+
+def test_compiled_frame_launch_counts_move_on_replay(small_scene, dev):
+    """The wrappers' counts move on every replay by the launches recorded
+    at capture (and not by the capture itself), and the profiler sees those
+    kernels in one replay."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from radarays_ros_tpu_torch.sim import graphs as G
+    from radarays_ros_tpu_torch.sim import pipeline as P
+
+    cfg, params, poses = _jit_case(small_scene, dev, signal_max=100.0)
+    g = torch.Generator(dev).manual_seed(0)
+    P.simulate_frames_jit(small_scene, params, cfg, poses, generator=g)
+    graph = P.frame_graphs.last()
+    per = graph.launches
+    assert per["prep_flat"] == per["sweep"] == cfg.n_reflections
+    assert per["bin"] == 1 and "bin_bwd" not in per
+    before = G.launch_counts()
+    for _ in range(2):
+        P.simulate_frames_jit(small_scene, params, cfg, poses, generator=g)
+    after = G.launch_counts()
+    assert {k: after[k] - before[k] for k in after
+            if after[k] != before[k]} == {k: 2 * n for k, n in per.items()}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        P.simulate_frames_jit(small_scene, params, cfg, poses, generator=g)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    for k, kern in (("sweep", "sweep_kernel"), ("prep_flat",
+                                                "prep_flat_kernel"),
+                    ("bin", "bin_kernel")):
+        assert sum(kern in x for x in names) == per[k], k
+
+
+def test_compiled_value_and_grad_on_card(small_scene, dev):
+    """The fit's compiled value-and-grad on the card: loss and gradient bit
+    for bit against the eager step over three Adam steps, K5's backward and
+    table_grad inside the graph, Adam eager."""
+    from radarays_ros_tpu_torch.geom.scene import INVALID_OBJ_ID
+    from radarays_ros_tpu_torch.opti import optimize as O
+    from radarays_ros_tpu_torch.sim.config import (Materials,
+                                                   RadarModelConfig,
+                                                   RadarParams)
+    from radarays_ros_tpu_torch.utils.transforms import make_pose
+    from radarays_ros_tpu_torch.wave.cone import sample_cone_draws
+
+    ids = small_scene.obj_ids
+    n_obj = int(ids[ids != INVALID_OBJ_ID].max()) + 1
+    start = RadarParams.make(Materials.from_list([
+        dict(velocity=0.3, ambient=1.0, diffuse=0.0, specular=1.0),
+        dict(velocity=0.1, ambient=0.5, diffuse=0.4, specular=60.0),
+        dict(velocity=0.0, ambient=0.9, diffuse=0.1, specular=200.0)],
+        device=dev), np.ones(n_obj, np.int32), 8.0)
+    cfg = RadarModelConfig(n_angles=64, n_cells=512, resolution=0.1,
+                           n_samples=8, n_reflections=2, ambient_noise=0,
+                           signal_denoising_triangular_width=15,
+                           opaque_materials=False, record_multi_path=True,
+                           trace_engine="kernel")
+    gen = torch.Generator(dev).manual_seed(0)
+    draws = tuple(torch.stack(d) for d in zip(*[
+        sample_cone_draws(gen, 8, 2) for _ in range(2)]))
+    poses = torch.from_numpy(np.stack([make_pose([0.5, 0.5, 2.0]),
+                                       make_pose([-1.0, 0.5, 2.0])]))
+    targets = torch.full((2, 512, 64), 3.0, device=dev)
+    obj = O.default_objective(small_scene, cfg, poses, targets,
+                              cone_draws=draws)
+    pv = O.ParamVector(material_slots=(1, 2), tune_n_reflections=False)
+    step_loss, _, to_z = O.step_loss_fn(obj, start, pv)
+    grad_fn = O.value_and_grad(step_loss)
+    z_c = to_z(pv.to_vec(start)).requires_grad_(True)
+    z_e = z_c.detach().clone().requires_grad_(True)
+    opt_c = torch.optim.Adam([z_c], lr=0.04)
+    opt_e = torch.optim.Adam([z_e], lr=0.04)
+    for _ in range(3):
+        val, g = grad_fn(z_c)
+        opt_e.zero_grad()
+        loss = step_loss(z_e)
+        loss.backward()
+        assert torch.equal(val, loss.detach()) and torch.equal(g, z_e.grad)
+        assert torch.isfinite(g).all() and g.abs().max() > 0
+        z_c.grad = g
+        opt_c.step()
+        opt_e.step()
+    graph = grad_fn.last()
+    assert graph.replays == 2
+    assert graph.launches["bin_bwd"] == 1
+    assert graph.launches["table_grad"] == cfg.n_reflections
+    assert graph.launches["prep_flat"] > 0 and graph.launches["sweep"] > 0
+
+
+def test_compiled_frame_refuses_the_plain_sweep(small_scene, dev):
+    """The plain "sweep" engine ends its loop on a host test: the compiled
+    entry refuses it by its config, before anything runs."""
+    from radarays_ros_tpu_torch.sim import pipeline as P
+
+    cfg, params, poses = _jit_case(small_scene, dev, trace_engine="sweep")
+    n0, c0 = CT.prep_flat.launches, P.frame_graphs.captures
+    with pytest.raises(P.JitRefused, match="sweep"):
+        P.simulate_frames_jit(small_scene, params, cfg, poses,
+                              generator=torch.Generator(dev).manual_seed(0))
+    assert CT.prep_flat.launches == n0 and P.frame_graphs.captures == c0
+
+
+def test_compiled_frame_raises_on_a_capture_a_sync_breaks(small_scene, dev,
+                                                          monkeypatch):
+    """The positive control: a host sync in the frame (.item() after the
+    binning) passes the eager warm-up and breaks the capture, and the
+    compiled entry raises — it does not fall back to the eager frame."""
+    from radarays_ros_tpu_torch.sim import pipeline as P
+
+    draw = P.draw_signals
+
+    def synced(*a, **k):
+        img, mv = draw(*a, **k)
+        mv.max().item()
+        return img, mv
+
+    monkeypatch.setattr(P, "draw_signals", synced)
+    cfg, params, poses = _jit_case(small_scene, dev, signal_max=80.0)
+    c0 = P.frame_graphs.captures
+    with pytest.raises(RuntimeError):
+        P.simulate_frames_jit(small_scene, params, cfg, poses,
+                              generator=torch.Generator(dev).manual_seed(0))
+    assert P.frame_graphs.captures == c0
+    torch.cuda.synchronize()
