@@ -32,6 +32,7 @@ from radarays_ros_tpu_torch.sim.config import RadarModelConfig, RadarParams
 from radarays_ros_tpu_torch.sim.graphs import Compiled
 from radarays_ros_tpu_torch.sim.pipeline import (float_u8_image,
                                                  simulate_frames)
+from radarays_ros_tpu_torch.utils.profiling import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -238,7 +239,9 @@ def optimize_gradient(loss_of_params: Callable[[RadarParams], torch.Tensor],
     (e.g. from default_objective with cfg/n_reflections baked in). Each
     step's loss and gradient come from one compiled call
     (`value_and_grad`: a CUDA graph on the card); Adam's update is eager,
-    as optax's is in the reference."""
+    as optax's is in the reference. Spans: the fit is `rr.fit.run`, each
+    step's loss and gradient through `loss.item()` one `rr.fit.eval`
+    (Adam's step lies outside it)."""
     pv = pv or ParamVector(tune_n_reflections=False)
     if pv.tune_n_reflections:
         raise ValueError(
@@ -246,26 +249,30 @@ def optimize_gradient(loss_of_params: Callable[[RadarParams], torch.Tensor],
             "on the host in every loss, which the compiled step cannot (nor "
             "can the reference's jit): hold it fixed and sweep it outside "
             "(sweep_n_reflections)")
-    step_loss, to_vec, to_z = step_loss_fn(loss_of_params, params_init, pv)
-    grad_fn = value_and_grad(step_loss)
-    z = to_z(pv.to_vec(params_init)).requires_grad_(True)
-    opt = torch.optim.Adam([z], lr=lr, betas=(0.9, 0.999), eps=1e-8)
-    history = []
-    best = (np.inf, z.detach().clone())
-    for i in range(steps):
-        loss, z.grad = grad_fn(z)
-        val = loss.item()
-        history.append(val)
-        if val < best[0]:
-            best = (val, z.detach().clone())
-        opt.step()
-        if verbose and i % 10 == 0:
-            print(f"step {i:4d}  loss {val:.4f}")
-    with torch.no_grad():
-        vec_t = to_vec(best[1])
-        params, n_ref = pv.to_params(params_init, vec_t)
-    return OptResult(vec=vec_t.cpu().numpy(), value=best[0], history=history,
-                     params=params, n_reflections=n_ref)
+    with annotate("rr.fit.run"):
+        step_loss, to_vec, to_z = step_loss_fn(loss_of_params, params_init,
+                                               pv)
+        grad_fn = value_and_grad(step_loss)
+        z = to_z(pv.to_vec(params_init)).requires_grad_(True)
+        opt = torch.optim.Adam([z], lr=lr, betas=(0.9, 0.999), eps=1e-8)
+        history = []
+        best = (np.inf, z.detach().clone())
+        for i in range(steps):
+            with annotate("rr.fit.eval"):
+                loss, z.grad = grad_fn(z)
+                val = loss.item()
+            history.append(val)
+            if val < best[0]:
+                best = (val, z.detach().clone())
+            opt.step()
+            if verbose and i % 10 == 0:
+                print(f"step {i:4d}  loss {val:.4f}")
+        with torch.no_grad():
+            vec_t = to_vec(best[1])
+            params, n_ref = pv.to_params(params_init, vec_t)
+        return OptResult(vec=vec_t.cpu().numpy(), value=best[0],
+                         history=history, params=params,
+                         n_reflections=n_ref)
 
 
 def optimize_black_box(f: Callable[[np.ndarray], float],
@@ -277,70 +284,78 @@ def optimize_black_box(f: Callable[[np.ndarray], float],
 
     Phase 1: scrambled low-discrepancy seeding (+ optional x0); phase 2:
     Nelder-Mead polish from the best seed. Returns (x_best, f_best, history).
+    Spans: the search is `rr.fit.run`, each call of f one `rr.fit.eval`.
     """
-    rng = np.random.default_rng(seed)
-    lo, hi = bounds[:, 0], bounds[:, 1]
-    dim = bounds.shape[0]
+    def ev(x):
+        with annotate("rr.fit.eval"):
+            return float(f(x))
 
-    # Halton-like seeding
-    def halton(i, base):
-        f, r = 1.0, 0.0
-        while i > 0:
-            f /= base
-            r += f * (i % base)
-            i //= base
-        return r
+    with annotate("rr.fit.run"):
+        rng = np.random.default_rng(seed)
+        lo, hi = bounds[:, 0], bounds[:, 1]
+        dim = bounds.shape[0]
 
-    primes = [2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37][:dim]
-    shift = rng.uniform(size=dim)
-    seeds = [lo + (hi - lo) * np.array(
-        [(halton(i + 1, p) + s) % 1.0 for p, s in zip(primes, shift)])
-        for i in range(n_seeds)]
-    if x0 is not None:
-        seeds.insert(0, np.clip(np.asarray(x0, np.float64), lo, hi))
+        # Halton-like seeding
+        def halton(i, base):
+            f, r = 1.0, 0.0
+            while i > 0:
+                f /= base
+                r += f * (i % base)
+                i //= base
+            return r
 
-    history = []
-    evals = [(float(f(x)), x) for x in seeds]
-    history += [v for v, _ in evals]
-    evals.sort(key=lambda t: t[0])
-    f_best, x_best = evals[0]
+        primes = [2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37][:dim]
+        shift = rng.uniform(size=dim)
+        seeds = [lo + (hi - lo) * np.array(
+            [(halton(i + 1, p) + s) % 1.0 for p, s in zip(primes, shift)])
+            for i in range(n_seeds)]
+        if x0 is not None:
+            seeds.insert(0, np.clip(np.asarray(x0, np.float64), lo, hi))
 
-    # Nelder-Mead polish (standard coefficients, box-clipped)
-    scale = (hi - lo) * 0.05
-    simplex = [x_best] + [np.clip(x_best + scale * (np.arange(dim) == k),
-                                  lo, hi) for k in range(dim)]
-    fvals = [float(f(x)) for x in simplex]
-    history += fvals
-    for _ in range(iters):
+        history = []
+        evals = [(ev(x), x) for x in seeds]
+        history += [v for v, _ in evals]
+        evals.sort(key=lambda t: t[0])
+        f_best, x_best = evals[0]
+
+        # Nelder-Mead polish (standard coefficients, box-clipped)
+        scale = (hi - lo) * 0.05
+        simplex = [x_best] + [np.clip(x_best + scale * (np.arange(dim) == k),
+                                      lo, hi) for k in range(dim)]
+        fvals = [ev(x) for x in simplex]
+        history += fvals
+        for _ in range(iters):
+            order = np.argsort(fvals)
+            simplex = [simplex[i] for i in order]
+            fvals = [fvals[i] for i in order]
+            centroid = np.mean(simplex[:-1], axis=0)
+            xr = np.clip(centroid + (centroid - simplex[-1]), lo, hi)
+            fr = ev(xr)
+            history.append(fr)
+            if fr < fvals[0]:
+                xe = np.clip(centroid + 2 * (centroid - simplex[-1]), lo, hi)
+                fe = ev(xe)
+                history.append(fe)
+                simplex[-1], fvals[-1] = (xe, fe) if fe < fr else (xr, fr)
+            elif fr < fvals[-2]:
+                simplex[-1], fvals[-1] = xr, fr
+            else:
+                xc = np.clip(centroid + 0.5 * (simplex[-1] - centroid), lo,
+                             hi)
+                fc = ev(xc)
+                history.append(fc)
+                if fc < fvals[-1]:
+                    simplex[-1], fvals[-1] = xc, fc
+                else:  # shrink
+                    for k in range(1, dim + 1):
+                        simplex[k] = simplex[0] + 0.5 * (simplex[k]
+                                                         - simplex[0])
+                        fvals[k] = ev(simplex[k])
+                    history += fvals[1:]
         order = np.argsort(fvals)
-        simplex = [simplex[i] for i in order]
-        fvals = [fvals[i] for i in order]
-        centroid = np.mean(simplex[:-1], axis=0)
-        xr = np.clip(centroid + (centroid - simplex[-1]), lo, hi)
-        fr = float(f(xr))
-        history.append(fr)
-        if fr < fvals[0]:
-            xe = np.clip(centroid + 2 * (centroid - simplex[-1]), lo, hi)
-            fe = float(f(xe))
-            history.append(fe)
-            simplex[-1], fvals[-1] = (xe, fe) if fe < fr else (xr, fr)
-        elif fr < fvals[-2]:
-            simplex[-1], fvals[-1] = xr, fr
-        else:
-            xc = np.clip(centroid + 0.5 * (simplex[-1] - centroid), lo, hi)
-            fc = float(f(xc))
-            history.append(fc)
-            if fc < fvals[-1]:
-                simplex[-1], fvals[-1] = xc, fc
-            else:  # shrink
-                for k in range(1, dim + 1):
-                    simplex[k] = simplex[0] + 0.5 * (simplex[k] - simplex[0])
-                    fvals[k] = float(f(simplex[k]))
-                history += fvals[1:]
-    order = np.argsort(fvals)
-    if fvals[order[0]] < f_best:
-        f_best, x_best = fvals[order[0]], simplex[order[0]]
-    return np.asarray(x_best), float(f_best), history
+        if fvals[order[0]] < f_best:
+            f_best, x_best = fvals[order[0]], simplex[order[0]]
+        return np.asarray(x_best), float(f_best), history
 
 
 def sweep_n_reflections(

@@ -34,6 +34,9 @@ Launch counts: the kernel wrappers count launches in Python, which a
 replay does not run. A capture records each wrapper's launches (and takes
 them back: nothing ran), and every replay adds them, so `<wrapper>.launches`
 stays the count of kernels the card ran.
+
+Spans (utils/profiling.py): a graph's build is `rr.graph.build`, each
+replay's launch `rr.graph.replay`.
 """
 
 from __future__ import annotations
@@ -43,6 +46,8 @@ import time
 from typing import Any, Callable, Optional
 
 import torch
+
+from radarays_ros_tpu_torch.utils.profiling import annotate
 
 
 def kernel_wrappers() -> dict:
@@ -104,51 +109,56 @@ class Graph:
     It holds fn and `static`, which it reads in place."""
 
     def __init__(self, fn: Callable, static: tuple, spec, leaves, device):
-        self.fn, self.static = fn, static
-        self.device = torch.device(device)
-        with torch.no_grad():
-            self.static_in = [torch.empty(t.shape, dtype=t.dtype,
-                                          device=self.device).copy_(t)
-                              for t in leaves]
-        args = unflatten(spec, self.static_in)
-        cur = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            first = fn(*static, *args)            # the warm-up, eager
-        cur.wait_stream(side)
-        first_leaves, self.out_spec = flatten(first)
-        for t in first_leaves:
-            # the warm-up's result is this call's: the caller's stream
-            # uses it after the side stream made it
-            t.record_stream(cur)
-        self.first = first
+        with annotate("rr.graph.build"):
+            self.fn, self.static = fn, static
+            self.device = torch.device(device)
+            with torch.no_grad():
+                self.static_in = [torch.empty(t.shape, dtype=t.dtype,
+                                              device=self.device).copy_(t)
+                                  for t in leaves]
+            args = unflatten(spec, self.static_in)
+            cur = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                first = fn(*static, *args)            # the warm-up, eager
+            cur.wait_stream(side)
+            first_leaves, self.out_spec = flatten(first)
+            for t in first_leaves:
+                # the warm-up's result is this call's: the caller's stream
+                # uses it after the side stream made it
+                t.record_stream(cur)
+            self.first = first
 
-        before = launch_counts()
-        t0 = time.perf_counter()
-        self.graph = torch.cuda.CUDAGraph()
-        try:
-            # torch.cuda.graph synchronizes and empties the allocator's
-            # cache as it starts: what is reserved from here on is the
-            # private pool's
-            with torch.cuda.graph(self.graph):
-                reserved = torch.cuda.memory_reserved(self.device)
-                out = fn(*static, *args)
-        finally:
-            # nothing ran: take back the launches the capture counted
-            after = launch_counts()
-            for k, fn_ in kernel_wrappers().items():
-                fn_.launches = before[k]
-        self.capture_s = time.perf_counter() - t0
-        self.pool_mib = (torch.cuda.memory_reserved(self.device)
-                         - reserved) / 2**20
-        self.launches = {k: after[k] - before[k] for k in before
-                         if after[k] != before[k]}
-        self.static_out, out_spec = flatten(out)
-        if out_spec != self.out_spec:
-            raise RuntimeError("the captured call's outputs differ in "
-                               "structure from the warm-up's")
-        self.replays = 0
+            wrappers = kernel_wrappers()
+            before = {k: w.launches for k, w in wrappers.items()}
+            t0 = time.perf_counter()
+            self.graph = torch.cuda.CUDAGraph()
+            try:
+                # torch.cuda.graph synchronizes and empties the allocator's
+                # cache as it starts: what is reserved from here on is the
+                # private pool's
+                with torch.cuda.graph(self.graph):
+                    reserved = torch.cuda.memory_reserved(self.device)
+                    out = fn(*static, *args)
+            finally:
+                # nothing ran: take back the launches the capture counted
+                after = {k: w.launches for k, w in wrappers.items()}
+                for k, w in wrappers.items():
+                    w.launches = before[k]
+            self.capture_s = time.perf_counter() - t0
+            self.pool_mib = (torch.cuda.memory_reserved(self.device)
+                             - reserved) / 2**20
+            self.launches = {k: after[k] - before[k] for k in before
+                             if after[k] != before[k]}
+            # what a replay adds to each wrapper's count
+            self.counted = [(wrappers[k], n)
+                            for k, n in self.launches.items()]
+            self.static_out, out_spec = flatten(out)
+            if out_spec != self.out_spec:
+                raise RuntimeError("the captured call's outputs differ in "
+                                   "structure from the warm-up's")
+            self.replays = 0
 
     def take_first(self):
         """The warm-up's result, once (the capturing call returns it)."""
@@ -159,11 +169,11 @@ class Graph:
         with torch.no_grad():
             for s, t in zip(self.static_in, leaves):
                 s.copy_(t)
-        self.graph.replay()
+        with annotate("rr.graph.replay"):
+            self.graph.replay()
         self.replays += 1
-        wrappers = kernel_wrappers()
-        for k, n in self.launches.items():
-            wrappers[k].launches += n
+        for w, n in self.counted:
+            w.launches += n
         return unflatten(self.out_spec, [t.clone() for t in self.static_out])
 
     def info(self) -> dict:

@@ -48,6 +48,7 @@ from radarays_ros_tpu_torch.sim.lookup import material_lookup
 from radarays_ros_tpu_torch.parallel.groups import axis_group
 from radarays_ros_tpu_torch.trace.api import (combine_trace_shards,
                                               resolve_engine, trace)
+from radarays_ros_tpu_torch.utils.profiling import annotate
 from radarays_ros_tpu_torch.utils.transforms import (azimuth_angles,
                                                      pose_matrix, rotz)
 from radarays_ros_tpu_torch.wave.cone import cone_local, sample_cone_draws
@@ -485,7 +486,16 @@ def simulate_frames_jit(scene: SceneTensors, params: RadarParams,
     captured on its first call, after an eager warm-up whose result that
     call returns (sim/graphs.py) — with the poses, random inputs and
     params copied in; a config jit_refusal names raises JitRefused before
-    anything runs. On the CPU it is the eager frame."""
+    anything runs. On the CPU it is the eager frame. The call is the span
+    `rr.frame.entry`."""
+    with annotate("rr.frame.entry"):
+        return _frames_jit(scene, params, cfg, poses, local_dirs=local_dirs,
+                           cone_draws=cone_draws, random_begin=random_begin,
+                           uniform=uniform, generator=generator)
+
+
+def _frames_jit(scene, params, cfg, poses, *, local_dirs, cone_draws,
+                random_begin, uniform, generator) -> FrameResult:
     poses = torch.as_tensor(poses, dtype=torch.float32)
     args = _frame_args(params, poses, *_draw_absent(
         cfg, poses.shape[0], scene.device, local_dirs, cone_draws,
@@ -506,11 +516,13 @@ def simulate_frame_jit(scene: SceneTensors, params: RadarParams,
                        generator: Optional[torch.Generator] = None
                        ) -> FrameResult:
     """simulate_frame through simulate_frames_jit (the reference's
-    simulate_frame_jit): one frame, the batch of one."""
-    return _one_frame(simulate_frames_jit, scene, params, cfg, pose,
-                      local_dirs=local_dirs, cone_draws=cone_draws,
-                      random_begin=random_begin, uniform=uniform,
-                      generator=generator)
+    simulate_frame_jit): one frame, the batch of one, in one
+    `rr.frame.entry` span."""
+    with annotate("rr.frame.entry"):
+        return _one_frame(_frames_jit, scene, params, cfg, pose,
+                          local_dirs=local_dirs, cone_draws=cone_draws,
+                          random_begin=random_begin, uniform=uniform,
+                          generator=generator)
 
 
 def float_u8_image(res: FrameResult, cfg: RadarModelConfig) -> torch.Tensor:

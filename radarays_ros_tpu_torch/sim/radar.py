@@ -51,7 +51,7 @@ class Radar:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Radar: no CUDA device; pass device='cpu' to "
                                "simulate on the host")
-        self.timer = StageTimer(enabled=verbose_timing)
+        self.timer = StageTimer()
         self.verbose_timing = verbose_timing
         self.scene = scene
         self._scene_tensors = scene.to_device(self.device)
