@@ -37,7 +37,11 @@ Phases (one line of figures each; any failure raises and exits non-zero):
      with the share of output cells whose tap window holds a nonzero value
      and the nonzero tap terms per such cell; and one frame rendered
      through the kernels and through the plain versions under the frame
-     contract of tests/test_oracle.py:70-87;
+     contract of tests/test_oracle.py:70-87; then K1 at one frame on the
+     benchmark's loop (portbench's kaist02-1m scene, first pose and live1's
+     held cone draws: 10 ray blocks a bounce), bounce by bounce, at the
+     row slices the wrapper picks and at one thread a lane, each bitwise
+     against the plain version, with the slices and `split_launches`;
   6. frames: the same preset over the 10k companion scene
      make_urban_scene(800, 300, seed=7) (40 chunks: the flat prep K4, not
      K2/K3) — throughput, launch counts (K4, K1, K5 > 0; K2, K3 and K5's
@@ -228,9 +232,10 @@ With --kernel-times the script runs, through the port found under ROOT
 those named after ROOT):
 every trace kernel on each bounce and K5's forward, each checked against
 its plain version and timed by device time and wrapper events, and the
-batch's profile with the copies made inside bin_signals; it prints one
-JSON line. Two checkouts run in turns in one call compare their kernels
-on one card.
+batch's profile with the copies made inside bin_signals; the phase
+`live1` instead times K1 alone at one frame on the benchmark's loop (phase
+5's one-frame rows). It prints one JSON line. Two checkouts run in turns
+in one call compare their kernels on one card.
 
 With --compiled it runs phase 14 alone (its profiles included) on the
 1M and 10k scenes and the fit's, and prints one JSON line.
@@ -456,11 +461,12 @@ def popcount(words):
 
 
 def kernels_vs_plain(st, o, d, bud, rb: int, reps: int,
-                     group: int = 0) -> dict:
+                     group: int = 0, split=None) -> dict:
     """The culling prep (K3 and K2, or K4 below the hierarchical threshold)
     and K1 against their plain versions on one ray set, over supergroups of
-    `group` chunks (0: the trace's auto group); returns per-kernel
-    {max_abs_err, bitwise, ms, plain_ms, bound_ms, bound_by, ...}."""
+    `group` chunks (0: the trace's auto group), K1 at `split` row slices a
+    lane (None: the wrapper's rule); returns per-kernel {max_abs_err,
+    bitwise, ms, plain_ms, bound_ms, bound_by, ...}."""
     from radarays_ros_tpu_torch.trace import cuda_trace as CT
 
     group = group or CT._auto_prep_group(st.n_chunks)
@@ -499,7 +505,7 @@ def kernels_vs_plain(st, o, d, bud, rb: int, reps: int,
                                                    rb, reps)
     out["sweep"] = sweep_vs_plain(st, e_k, C2, o, d, t_k, bud, reps,
                                   boxes=(st.chunk_lo, st.chunk_hi, inv_d),
-                                  group=group)
+                                  group=group, split=split)
     for row in out.values():
         row["group"] = group
     return out
@@ -568,14 +574,16 @@ def lane_kept(lo, hi, o, inv_d, cap, lim):
 
 
 def sweep_vs_plain(st, e_k, C2: int, o, d, t_k, bud, reps: int,
-                   boxes, group: int = 1) -> dict:
+                   boxes, group: int = 1, split=None) -> dict:
     """K1 against its plain version after the prep's entries e_k over
-    supergroups of `group` chunks, with the supergroup visits the plain
-    version's loop made, the visits the lanes need by their block's ranking
-    (per lane, the ranked entries of its block <= min(best_t, t_last) at
-    the end), and the chunks each lane keeps itself (lane_kept on the chunk
-    boxes = (lo, hi, inv_d), whatever the group), from which the bound is
-    counted."""
+    supergroups of `group` chunks, at `split` row slices a lane (None: the
+    wrapper's rule; a port without row slices takes only None) against the
+    plain version at its group width (32 / P lanes), with the supergroup
+    visits the plain version's loop made, the visits the lanes need by
+    their block's ranking (per lane, the ranked entries of its block <=
+    min(best_t, t_last) at the end), and the chunks each lane keeps itself
+    (lane_kept on the chunk boxes = (lo, hi, inv_d), whatever the group),
+    from which the bound is counted."""
     import torch
 
     from radarays_ros_tpu_torch.trace import cuda_trace as CT
@@ -583,8 +591,13 @@ def sweep_vs_plain(st, e_k, C2: int, o, d, t_k, bud, reps: int,
     nvisit, order, entry = CT._rank(e_k[:, :C2])
     args = (nvisit, order, entry, o, d, t_k, st.coef, st.fetch)
     kw = dict(tc=st.chunk_size, group=group, t_min=0.0)
+    if split is not None:
+        kw["_split"] = split
     bt_k, bi_k, rows_k = CT.sweep(*args, **kw)
-    bt_p, bi_p, rows_p, visits = CT._sweep_plain(*args, **kw,
+    kw.pop("_split", None)
+    P = getattr(CT.sweep, "last_split", 1)
+    width = {"lanes": 32 // P} if P > 1 else {}
+    bt_p, bi_p, rows_p, visits = CT._sweep_plain(*args, **kw, **width,
                                                  with_visits=True)
     n_win = int((bi_k != bi_p).sum())
     check(n_win == 0, f"K1 sweep: {n_win} winners differ")
@@ -605,7 +618,7 @@ def sweep_vs_plain(st, e_k, C2: int, o, d, t_k, bud, reps: int,
     return timed(dict(
         max_abs_err=err, bitwise=bool(torch.equal(bt_k, bt_p)
                                       and torch.equal(rows_k, rows_p)),
-        winners_differ=n_win,
+        winners_differ=n_win, split=P, lanes_per_warp=32 // P,
         hit_rate=float(hit.float().sum() / max(lanes, 1)),
         live_lanes=lanes, ranked_chunks_max=int(nvisit.max()),
         ranked_chunks_mean=float(nvisit.float().mean()),
@@ -618,11 +631,13 @@ def sweep_vs_plain(st, e_k, C2: int, o, d, t_k, bud, reps: int,
         chunks_kept_lane_mean=float(kept.float().mean()),
         chunks_kept_lane_max=int(kept.max()),
         distinct_chunks_needed=int(seen.sum()),
-        plain_ms=cuda_ms(lambda: CT._sweep_plain(*args, **kw), 1),
+        plain_ms=cuda_ms(lambda: CT._sweep_plain(*args, **kw, **width), 1),
         **bound(float(kept.sum()) * st.chunk_size * OPS_PAIR,
                 int(seen.sum()) * tri_bytes + o.shape[0] * (12 + 12 + 4)
                 + order.numel() * 8 + o.shape[0] * (4 + 4 + 64))),
-        lambda: CT.sweep(*args, **kw), reps, "sweep")
+        lambda: CT.sweep(*args, **kw, **({} if split is None
+                                          else {"_split": split})),
+        reps, "sweep")
 
 
 def per_launch(rows: list) -> dict:
@@ -1180,6 +1195,82 @@ def frames_phase(tag: str, st, params, cfg, dev, expect_zero=(),
                **frame_contract(fk, fp))
     log(f"[{tag} frame kernels vs plain] {json.dumps(fvp)}")
     return frames, launches, by_bounce, k5, fvp
+
+
+def one_frame_k1(dev, reps: int, splits=(None, 1)) -> dict:
+    """K1 at one frame on the benchmark's loop: the scene, first pose and
+    held cone draws of portbench's kaist02-1m configuration under its
+    live1 traffic (400 x 50 rays a bounce, 10 ray blocks), bounce by
+    bounce through the pipeline's _bounce. On each bounce, K3/K2 and K1
+    against their plain versions (kernels_vs_plain) once for each entry
+    of `splits` (None: the wrapper's rule; 1: one thread a lane, the
+    kernel without row slices), timed in phase 10. Returns (line, the
+    rows by split then bounce)."""
+    import numpy as np
+    import torch
+
+    from portbench import system as S
+    from portbench.generator import cone_draws
+    from portbench.scene import loop_pose
+    from radarays_ros_tpu_torch.sim import pipeline as P
+    from radarays_ros_tpu_torch.trace import cuda_trace as CT
+
+    with open(os.path.join(HERE, "portbench", "configs",
+                           "kaist02-1m.json")) as f:
+        conf = json.load(f)
+    with open(os.path.join(HERE, "portbench", "traffic", "live1.json")) as f:
+        held = json.load(f)["held_cone_seed"]
+    system = S.build(conf, dev)
+    cfg = system.cfg
+    params = S.port_params(S.material_table(conf["materials"], dev),
+                           system.object_materials, conf["beam_width_deg"])
+    tr = conf["trajectory"]
+    pose = torch.from_numpy(loop_pose(np.radians([tr["phase_deg"]]),
+                                      tr["radius"], tr["height"]))
+    draws = cone_draws(torch.Generator(dev).manual_seed(held), 1, cfg)
+    waves, sensor_pos = P.start_waves(params, cfg, pose, cone_draws=draws,
+                                      device=dev)
+    rows = {split: [] for split in splits}
+    bounces = []
+    for pass_id, w, o, d, budget in bounce_rays(system.scene, params, cfg,
+                                                waves, sensor_pos):
+        line = dict(bounce=pass_id + 1, rays=int(w.valid.numel()),
+                    valid_share=float(w.valid.float().mean()))
+        for split in splits:
+            s0 = getattr(CT.sweep, "split_launches", 0)
+            k1 = kernels_vs_plain(system.scene, o, d, budget,
+                                  rb=cfg.trace_ray_block, reps=reps,
+                                  split=split)["sweep"]
+            check(k1["bitwise"], f"K1 at one frame, split {split}: "
+                  "not bitwise")
+            rows[split].append(k1)
+            line[f"split_{split or 'rule'}"] = dict(
+                split=k1["split"], bitwise=k1["bitwise"],
+                split_launches=getattr(CT.sweep, "split_launches", 0) - s0,
+                visits_group_mean=k1["visits_group32_mean"],
+                visits_cta128_mean=k1["visits_cta128_mean"],
+                bound_ms=k1["bound_ms"])
+        bounces.append(line)
+    return dict(pose=pose[0].tolist(), ray_block=cfg.trace_ray_block,
+                n_triangles=system.scene.n_triangles,
+                resident_ctas=(CT.sweep_resident(dev.index,
+                                                 system.scene.chunk_size)
+                               if hasattr(CT, "sweep_resident") else None),
+                bounces=bounces), rows
+
+
+def one_frame_times(rows: dict) -> dict:
+    """one_frame_k1's rows after phase 10: K1's device ms a bounce and a
+    frame (the sum over its bounces) for each split."""
+    out = {}
+    for split, bb in rows.items():
+        out[f"split_{split or 'rule'}"] = dict(
+            split=[r["split"] for r in bb],
+            ms_by_bounce=[r["ms"] for r in bb],
+            ms_per_frame=sum(r["ms"] for r in bb),
+            wrapper_ms_per_frame=sum(r["wrapper_ms"] for r in bb),
+            ms_source="; ".join(sorted({r["ms_source"] for r in bb})))
+    return out
 
 
 def fit_setup(device):
@@ -3196,19 +3287,30 @@ def kernel_times(dev, smi: str, phases=("5", "6")) -> dict:
     trace kernel of
     the path on each bounce and K5's forward (kernels_vs_plain,
     bin_fwd_vs_plain: checked bit for bit, timed by kernel_ms), and one
-    batch under the profiler (batch_profile: copies inside bin_signals).
-    Every input comes from fixed seeds, so checkouts run in turns in one
-    call compare their kernels on one card."""
+    batch under the profiler (batch_profile: copies inside bin_signals);
+    for "live1", one_frame_k1's K1 rows. Every input comes from fixed
+    seeds, so checkouts run in turns in one call compare their kernels on
+    one card."""
     import torch
 
     from radarays_ros_tpu_torch import cuda_build
     from radarays_ros_tpu_torch.image import cuda_draw
     from radarays_ros_tpu_torch.sim import pipeline as P
+    from radarays_ros_tpu_torch.trace import cuda_trace as CT
 
     b = cuda_build.build()
     out = dict(package=os.path.dirname(os.path.dirname(cuda_draw.__file__)),
                gpu=smi, build_s=b.seconds)
     for tag in phases:
+        if tag == "live1":
+            # K1 alone at one frame on the benchmark's loop; a port
+            # without row slices runs its one kernel
+            split = (None, 1) if hasattr(CT, "sweep_resident") else (None,)
+            line, rows = one_frame_k1(dev, reps=50, splits=split)
+            while DEFERRED:
+                DEFERRED.pop(0)()
+            out[tag] = dict(line, kernel_ms=one_frame_times(rows))
+            continue
         _, st, params, cfg, _, _ = kaist_setup(
             dev, n_buildings={"5": 83000, "6": 800}[tag])
         poses = batch_poses()
@@ -3734,6 +3836,10 @@ def run(dev, run_cache: str) -> int:
     details.update(frames=frames, frame_vs_plain=fvp)
     scene5, cfg5, info5 = scene, cfg, info
     del st
+    # K1 at one frame on the benchmark's loop, beside the batch of 4
+    one_frame, one_frame_rows = one_frame_k1(dev, reps=10)
+    details["one_frame_k1"] = one_frame
+    log(f"[5 one frame on the loop, K1] {json.dumps(one_frame)}")
 
     # ---- 6. frames on the 10k companion scene (the flat prep K4)
     scene, st, params, cfg, info, _ = kaist_setup(dev, n_buildings=800)
@@ -3818,6 +3924,9 @@ def run(dev, run_cache: str) -> int:
         for i, mb in enumerate(bb):
             log(f"[10 kernel times, phase {tag} bounce {i + 1}] " + json.dumps(
                 {k: {kk: v[kk] for kk in times} for k, v in mb.items()}))
+    one_frame["kernel_ms"] = one_frame_times(one_frame_rows)
+    log("[10 kernel times, one frame on the loop, K1] "
+        + json.dumps(one_frame["kernel_ms"]))
     mk, mk10 = kernel_rows(bb5, k5_5), kernel_rows(bb6, k5_6)
     mk12 = kernel_rows(bb12, k5_12)
     details.update(kernels_main_path=mk, kernels_10k=mk10, kernels_10m=mk12)

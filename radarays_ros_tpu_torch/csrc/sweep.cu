@@ -17,21 +17,36 @@
 // reach at most half of that rate.
 //
 // Design, against what held the block-per-CTA version back:
-//  1. Occupancy and balance: each 2048-ray block is split over 16 CTAs of
-//     128 lanes (one thread a lane) that walk the SAME ranked list of their
-//     block (the block's entries are a min over its lanes, so the list does
-//     not depend on which CTA holds which lane): 640 CTAs on the main path
-//     instead of 40, all resident at once (5 an SM by shared memory), so
-//     no SM holds much more work than another (with 256 lanes a CTA, 320
-//     CTAs put 3 on some SMs and 2 on the rest).
-//  2. Termination per aligned group of 32 consecutive lanes (one warp,
-//     so every decision is warp-uniform): a group stops once the
+//  1. Occupancy and balance: the lanes of a block are split over CTAs of
+//     128 threads that walk the SAME ranked list of their block (the
+//     block's entries are a min over its lanes, so the list does not
+//     depend on which CTA holds which lane). Each lane's rows are split in
+//     turn over P threads (P row slices, P in {1, 2, 4, 8}, a template
+//     argument): thread t serves lane t / P and slice t % P, so a CTA holds
+//     128 / P lanes and a 2048-ray block is 16 P CTAs. The wrapper picks P
+//     from the launch's shape (trace/cuda_trace.py:_sweep_split): the
+//     largest P whose CTAs the card still holds at once (5 an SM by shared
+//     memory). At batch 4 or more, 640 and more CTAs already fill the card
+//     and P = 1; one frame's 10 blocks make 160 CTAs of 4 warps on 132
+//     SMs, where the warps' chains of dependent rounded operations have
+//     nothing to hide their latency behind, and P = 4 puts 640 there.
+//     Slice s tests the row pairs j with j % P == s: a warp's float4 reads
+//     of P consecutive pairs (44 floats apart) fall in disjoint banks.
+//     After a stage, the P slices of a lane merge by __shfl_xor_sync (least
+//     t, then lowest row) and the merged winner replaces the lane's best
+//     only on a strict `<`: the sequential rule below, so every P gives
+//     the same winner.
+//  2. Termination per warp (every decision is warp-uniform), that is per
+//     aligned group of 32 / P consecutive lanes: a group stops once the
 //     next ranked entry exceeds max over its lanes of min(best_t, t_last),
 //     and is not started when the first entry already does; a CTA stops
 //     when all its groups have. This is the reference's exactness argument
 //     (pallas_trace.py:112-120) applied per lane; the block-wide rule is
-//     the same argument at 2048 lanes. Lanes that keep no chunk (budget 0:
-//     padding and dead waves) have t_last = -inf and never hold a group.
+//     the same argument at 2048 lanes. A finer group visits no chunk a
+//     coarser one skips; only a lane with no hit within its budget can see
+//     its (beyond-budget) result move with the group, and the trace counts
+//     those as misses. Lanes that keep no chunk (budget 0: padding and
+//     dead waves) have t_last = -inf and never hold a group.
 //  3. The division t = -so/sd is computed only where the inside test
 //     passes (the hit needs both), not for every (ray, triangle) pair; the
 //     inside tests of two rows run branch-free first, so their chains
@@ -145,35 +160,74 @@ __device__ __forceinline__ bool inside(const float* q, const Lane& r,
   return add(pmin, mul(eps, mul(*sd, *sd))) >= 0.f;
 }
 
-// every row of one staged chunk against the thread's lane. Rows are read
-// in pairs as 11 float4 (a row pair is 176 bytes, 16-byte aligned); the
-// inside tests of a pair run branch-free, then the division t = -so/sd only
-// where a test passed, rows in order
+// one row pair (rows `row` and `row` + 1 of a staged chunk) against the
+// lane: the pair is read as 11 float4 (176 bytes, 16-byte aligned), its
+// inside tests run branch-free, then the division t = -so/sd only where a
+// test passed, rows in order; (bt, bi) take a hit nearer than bt (strict
+// `<`) with bi = base + its row
+__device__ __forceinline__ void test_pair(const float4* s4, int row,
+                                          const Lane& ln, int base,
+                                          float t_min, float eps, float& bt,
+                                          int& bi) {
+  float q[2 * kCoef];
+#pragma unroll
+  for (int i = 0; i < 2 * kCoef / 4; ++i) {
+    const float4 v = s4[(row / 2) * (2 * kCoef / 4) + i];
+    q[4 * i] = v.x; q[4 * i + 1] = v.y; q[4 * i + 2] = v.z;
+    q[4 * i + 3] = v.w;
+  }
+  float so[2], sd[2];
+  bool in[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    in[h] = inside(q + h * kCoef, ln, eps, &so[h], &sd[h]);
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    if (in[h]) {
+      const float t = __fdiv_rn(-so[h], sd[h]);
+      if (t >= t_min && t < bt) {
+        bt = t;
+        bi = base + row + h;
+      }
+    }
+}
+
+// every row of one staged chunk against the thread's lane, rows in order
 __device__ __forceinline__ void test_chunk(const float* sc, int tc, Lane& ln,
                                            int tri0, float t_min, float eps) {
   const float4* s4 = reinterpret_cast<const float4*>(sc);
-  for (int row = 0; row < tc; row += 2) {
-    float q[2 * kCoef];
+  for (int row = 0; row < tc; row += 2)
+    test_pair(s4, row, ln, tri0, t_min, eps, ln.bt, ln.bi);
+}
+
+// the P row slices of a lane (P > 1): slice `slice` tests the row pairs j
+// with j % P == slice, rows in order, into the stage's own nearest (the
+// lowest row of its least t); the P slices, consecutive threads, then
+// merge to the least t and on equal t the lowest row, and the merged row
+// replaces the lane's best on a strict `<`, as test_chunk's sequential
+// walk would. Called by the whole warp
+template <int P>
+__device__ __forceinline__ void test_chunk_split(const float* sc, int tc,
+                                                 Lane& ln, int tri0,
+                                                 float t_min, float eps,
+                                                 int slice) {
+  const float4* s4 = reinterpret_cast<const float4*>(sc);
+  float bt = CUDART_INF_F;
+  int bi = tc;
+  for (int row = 2 * slice; row < tc; row += 2 * P)
+    test_pair(s4, row, ln, 0, t_min, eps, bt, bi);
 #pragma unroll
-    for (int i = 0; i < 2 * kCoef / 4; ++i) {
-      const float4 v = s4[(row / 2) * (2 * kCoef / 4) + i];
-      q[4 * i] = v.x; q[4 * i + 1] = v.y; q[4 * i + 2] = v.z;
-      q[4 * i + 3] = v.w;
+  for (int off = 1; off < P; off <<= 1) {
+    const float t2 = __shfl_xor_sync(0xffffffffu, bt, off);
+    const int i2 = __shfl_xor_sync(0xffffffffu, bi, off);
+    if (t2 < bt || (t2 == bt && i2 < bi)) {
+      bt = t2;
+      bi = i2;
     }
-    float so[2], sd[2];
-    bool in[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      in[h] = inside(q + h * kCoef, ln, eps, &so[h], &sd[h]);
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      if (in[h]) {
-        const float t = __fdiv_rn(-so[h], sd[h]);
-        if (t >= t_min && t < ln.bt) {
-          ln.bt = t;
-          ln.bi = tri0 + row + h;
-        }
-      }
+  }
+  if (bt < ln.bt) {
+    ln.bt = bt;
+    ln.bi = tri0 + bi;
   }
 }
 
@@ -187,7 +241,8 @@ __device__ __forceinline__ bool group_continues(const Lane& r, float e_next) {
   return !(e_next > worst);
 }
 
-// one thread per lane; the warp is the lane group
+// P threads per lane (P row slices); the warp is the lane group
+template <int P>
 __global__ void __launch_bounds__(kLanes)
 sweep_kernel(const int* __restrict__ nvisit, const int* __restrict__ order,
              const float* __restrict__ entry, int ce,
@@ -203,7 +258,7 @@ sweep_kernel(const int* __restrict__ nvisit, const int* __restrict__ order,
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + 2 * stage_floats * 4);
   const int b = blockIdx.x / ctas_per_block;
   const int tid = threadIdx.x;
-  const long long r = (long long)blockIdx.x * blockDim.x + tid;
+  const long long r = (long long)blockIdx.x * (blockDim.x / P) + tid / P;
 
   Lane ln;
   ln.ox = orig[3 * r]; ln.oy = orig[3 * r + 1]; ln.oz = orig[3 * r + 2];
@@ -256,8 +311,12 @@ sweep_kernel(const int* __restrict__ nvisit, const int* __restrict__ order,
       }
       if (act) {
         mbar_wait(&full[s & 1], (uint32_t)((s >> 1) & 1));
-        test_chunk(buf + (s & 1) * stage_floats, tc, ln,
-                   (ord[k] * group + g) * tc, t_min, eps);
+        if constexpr (P == 1)
+          test_chunk(buf + (s & 1) * stage_floats, tc, ln,
+                     (ord[k] * group + g) * tc, t_min, eps);
+        else
+          test_chunk_split<P>(buf + (s & 1) * stage_floats, tc, ln,
+                              (ord[k] * group + g) * tc, t_min, eps, tid % P);
       }
       done_stages = s + 1;
       if (g + 1 < group) __syncthreads();
@@ -272,17 +331,58 @@ sweep_kernel(const int* __restrict__ nvisit, const int* __restrict__ order,
       mbar_wait(&full[s & 1], (uint32_t)((s >> 1) & 1));
 
   const bool live = ln.bt < CUDART_INF_F;
-  best_t_out[r] = ln.bt;
-  best_idx_out[r] = live ? ln.bi : -1;
-  float4* dst = reinterpret_cast<float4*>(rows_out + r * kFetch);
-  if (live) {
-    const float4* s4 =
-        reinterpret_cast<const float4*>(fetch + (long long)ln.bi * kFetch);
-    for (int i = 0; i < kFetch / 4; ++i) dst[i] = s4[i];
+  if constexpr (P == 1) {
+    best_t_out[r] = ln.bt;
+    best_idx_out[r] = live ? ln.bi : -1;
+    float4* dst = reinterpret_cast<float4*>(rows_out + r * kFetch);
+    if (live) {
+      const float4* s4 =
+          reinterpret_cast<const float4*>(fetch + (long long)ln.bi * kFetch);
+      for (int i = 0; i < kFetch / 4; ++i) dst[i] = s4[i];
+    } else {
+      for (int i = 0; i < kFetch / 4; ++i)
+        dst[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
   } else {
-    for (int i = 0; i < kFetch / 4; ++i)
-      dst[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    // each slice writes its 16 / P floats of the winner record
+    constexpr int kPart = kFetch / P;
+    const int slice = tid % P;
+    if (slice == 0) {
+      best_t_out[r] = ln.bt;
+      best_idx_out[r] = live ? ln.bi : -1;
+    }
+    float2* dst =
+        reinterpret_cast<float2*>(rows_out + r * kFetch + slice * kPart);
+    if (live) {
+      const float2* s2 = reinterpret_cast<const float2*>(
+          fetch + (long long)ln.bi * kFetch + slice * kPart);
+      for (int i = 0; i < kPart / 2; ++i) dst[i] = s2[i];
+    } else {
+      for (int i = 0; i < kPart / 2; ++i) dst[i] = make_float2(0.f, 0.f);
+    }
   }
+}
+
+using Kernel = decltype(&sweep_kernel<1>);
+
+// sweep_kernel<P> for split P in {1, 2, 4, 8}, else null
+Kernel kernel_for(int split) {
+  switch (split) {
+    case 1: return sweep_kernel<1>;
+    case 2: return sweep_kernel<2>;
+    case 4: return sweep_kernel<4>;
+    case 8: return sweep_kernel<8>;
+    default: return nullptr;
+  }
+}
+
+// the two stages and their barriers at chunk size tc, allowed to kernel k
+// past the default 48 KB
+cudaError_t stage_smem(Kernel k, int tc, size_t* smem) {
+  *smem = (size_t)2 * tc * kCoef * sizeof(float) + 16;
+  if (*smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)*smem);
 }
 
 }  // namespace
@@ -290,28 +390,40 @@ sweep_kernel(const int* __restrict__ nvisit, const int* __restrict__ order,
 // nvisit (B,) i32; order (B, ce) i32 ranked supergroups; entry (B, ce) f32
 // ranked entries with +inf after the last; o, d (B*RB, 3); t_last (B*RB,);
 // coef (T, 22) with a 16-byte aligned base; fetch (T, 16). tc even, RB a
-// multiple of 128. Outputs best_t (B*RB,), best_idx (B*RB,) (-1 on miss),
-// rows (B*RB, 16) (zeros on miss). A block's lanes go to RB / 128 CTAs.
+// multiple of 128, split (P, row slices a lane) 1, 2, 4 or 8. Outputs
+// best_t (B*RB,), best_idx (B*RB,) (-1 on miss), rows (B*RB, 16) (zeros on
+// miss). A block's lanes go to RB * P / 128 CTAs.
 extern "C" int rr_sweep(const int* nvisit, const int* order,
                         const float* entry, int ce, const float* o,
                         const float* d, const float* t_last, const float* coef,
                         const float* fetch, int n_blocks, int ray_block,
                         int tc, int group, float t_min, float eps,
-                        float* best_t, int* best_idx, float* rows,
+                        float* best_t, int* best_idx, float* rows, int split,
                         cudaStream_t stream) {
+  const Kernel kernel = kernel_for(split);
   if (ray_block % 128 != 0 || tc < 2 || tc % 2 != 0 || group < 1 ||
-      (reinterpret_cast<uintptr_t>(coef) & 15u) != 0)
+      kernel == nullptr || (reinterpret_cast<uintptr_t>(coef) & 15u) != 0)
     return (int)cudaErrorInvalidValue;
   if (n_blocks == 0) return cudaSuccess;
-  const int ctas_per_block = ray_block / kLanes;
-  const size_t smem = (size_t)2 * tc * kCoef * sizeof(float) + 16;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  sweep_kernel<<<n_blocks * ctas_per_block, kLanes, smem, stream>>>(
+  const int ctas_per_block = ray_block / kLanes * split;
+  size_t smem;
+  const cudaError_t e = stage_smem(kernel, tc, &smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<n_blocks * ctas_per_block, kLanes, smem, stream>>>(
       nvisit, order, entry, ce, o, d, t_last, coef, fetch, tc, group,
       ctas_per_block, t_min, eps, best_t, best_idx, rows);
   return (int)cudaGetLastError();
+}
+
+// The CTAs of K1 at chunk size tc and `split` row slices a lane that one
+// SM holds at once (the occupancy calculator: shared memory, registers,
+// threads), on the current device.
+extern "C" int rr_sweep_occupancy(int tc, int split, int* ctas_per_sm) {
+  const Kernel kernel = kernel_for(split);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  size_t smem;
+  const cudaError_t e = stage_smem(kernel, tc, &smem);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas_per_sm, kernel, kLanes, smem);
 }

@@ -33,10 +33,12 @@ _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LL = ctypes.c_longlong
-# C entry points: name -> argtypes (every entry returns cudaGetLastError())
+_PI = ctypes.POINTER(ctypes.c_int)
+# C entry points: name -> argtypes (every entry returns a cudaError_t)
 _SIGNATURES = {
     "rr_sweep": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
-                 _P, _P, _P, _P],
+                 _P, _P, _P, _I, _P],
+    "rr_sweep_occupancy": [_I, _I, _PI],
     "rr_coarse_words": [_P, _P, _I, _P, _P, _P, _I, _I, _F, _P, _P],
     "rr_prep_hier": [_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _F, _P, _P,
                      _P],

@@ -31,9 +31,10 @@ raises. A call whose tensors all lie on the CPU runs `fn` eagerly, as
 every plain version does.
 
 Launch counts: the kernel wrappers count launches in Python, which a
-replay does not run. A capture records each wrapper's launches (and takes
-them back: nothing ran), and every replay adds them, so `<wrapper>.launches`
-stays the count of kernels the card ran.
+replay does not run. A capture records each wrapper's counters (COUNTERS:
+its launches, and K1's launches with row slices) and takes them back
+(nothing ran), and every replay adds them, so `<wrapper>.launches` stays
+the count of kernels the card ran.
 
 Spans (utils/profiling.py): a graph's build is `rr.graph.build`, each
 replay's launch `rr.graph.replay`.
@@ -64,6 +65,15 @@ def kernel_wrappers() -> dict:
 
 def launch_counts() -> dict:
     return {k: fn.launches for k, fn in kernel_wrappers().items()}
+
+
+COUNTERS = ("launches", "split_launches")   # what a replay adds to
+
+
+def _counts(wrappers) -> dict:
+    """{(kernel, counter): value} of every wrapper's COUNTERS it has."""
+    return {(k, c): getattr(w, c) for k, w in wrappers.items()
+            for c in COUNTERS if hasattr(w, c)}
 
 
 # ------------------------------------------------------------ arguments
@@ -131,7 +141,7 @@ class Graph:
             self.first = first
 
             wrappers = kernel_wrappers()
-            before = {k: w.launches for k, w in wrappers.items()}
+            before = _counts(wrappers)
             t0 = time.perf_counter()
             self.graph = torch.cuda.CUDAGraph()
             try:
@@ -143,17 +153,19 @@ class Graph:
                     out = fn(*static, *args)
             finally:
                 # nothing ran: take back the launches the capture counted
-                after = {k: w.launches for k, w in wrappers.items()}
-                for k, w in wrappers.items():
-                    w.launches = before[k]
+                after = _counts(wrappers)
+                for (k, c), n in before.items():
+                    setattr(wrappers[k], c, n)
             self.capture_s = time.perf_counter() - t0
             self.pool_mib = (torch.cuda.memory_reserved(self.device)
                              - reserved) / 2**20
-            self.launches = {k: after[k] - before[k] for k in before
-                             if after[k] != before[k]}
-            # what a replay adds to each wrapper's count
-            self.counted = [(wrappers[k], n)
-                            for k, n in self.launches.items()]
+            delta = {kc: after[kc] - n for kc, n in before.items()
+                     if after[kc] != n}
+            self.launches = {k: n for (k, c), n in delta.items()
+                             if c == "launches"}
+            # what a replay adds to each wrapper's counters
+            self.counted = [(wrappers[k], c, n)
+                            for (k, c), n in delta.items()]
             self.static_out, out_spec = flatten(out)
             if out_spec != self.out_spec:
                 raise RuntimeError("the captured call's outputs differ in "
@@ -172,8 +184,8 @@ class Graph:
         with annotate("rr.graph.replay"):
             self.graph.replay()
         self.replays += 1
-        for w, n in self.counted:
-            w.launches += n
+        for w, c, n in self.counted:
+            setattr(w, c, getattr(w, c) + n)
         return unflatten(self.out_spec, [t.clone() for t in self.static_out])
 
     def info(self) -> dict:

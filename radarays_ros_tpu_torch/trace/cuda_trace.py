@@ -42,6 +42,7 @@ card the two agree bit for bit.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import warnings
 
@@ -322,33 +323,39 @@ def _chunk_t(o, d, w, cf, t_min: float):
 
 
 def _sweep_plain(nvisit, order, entry, o, d, t_last, coef, fetch, *,
-                 tc: int, group: int, t_min: float, with_visits: bool = False):
-    """Plain K1: every aligned group of 32 consecutive lanes of a ray block
-    walks its block's ranked list on its own; all groups advance in
-    lock-step over visit rank, as (groups, 32, tc) tensors per step, until
-    every group is done.
+                 tc: int, group: int, t_min: float, with_visits: bool = False,
+                 lanes: int = 32):
+    """Plain K1: every aligned group of `lanes` consecutive lanes of a ray
+    block walks its block's ranked list on its own; all groups advance in
+    lock-step over visit rank, as (groups, lanes, tc) tensors per step,
+    until every group is done.
 
     A group starts only if its first ranked entry is <= max over its lanes
     of t_last, and stops once the next entry exceeds max over its lanes of
     min(best_t, t_last) — the reference's per-lane exactness argument
-    (pallas_trace.py:112-120) at the kernel's warp granularity.
+    (pallas_trace.py:112-120) at the kernel's warp granularity: a warp
+    holds 32 / P lanes at P row slices (sweep), so the kernel at P is this
+    function at lanes = 32 // P. The group changes only the results of
+    lanes with no hit within their budget, which the trace counts as
+    misses.
 
     o x d (`_cross`) is rounded per product and difference, as sweep.cu.
 
     nvisit (B,) i32; order/entry (B, ce) ranked supergroups and entries
     (+inf after the last); o, d (B*RB, 3); t_last (B*RB,). Returns best_t
     (B*RB,), best_idx (B*RB,) i32 (-1 on miss) and rows (B*RB, 16); with
-    `with_visits` also the supergroups visited per 32-lane group (B,
-    RB/32) i32."""
+    `with_visits` also the supergroups visited per group (B, RB/lanes)
+    i32."""
     B = nvisit.shape[0]
-    G = o.shape[0] // (B * 32)                  # 32-lane groups per block
+    L = lanes
+    G = o.shape[0] // (B * L)                   # groups per block
     dev = o.device
-    ob = o.view(B, G, 32, 1, 3)
-    db = d.view(B, G, 32, 1, 3)
-    wb = _cross(o, d).view(B, G, 32, 1, 3)
-    tl = t_last.view(B, G, 32)
-    best_t = torch.full((B, G, 32), torch.inf, device=dev)
-    best_i = torch.zeros((B, G, 32), dtype=torch.int64, device=dev)
+    ob = o.view(B, G, L, 1, 3)
+    db = d.view(B, G, L, 1, 3)
+    wb = _cross(o, d).view(B, G, L, 1, 3)
+    tl = t_last.view(B, G, L)
+    best_t = torch.full((B, G, L), torch.inf, device=dev)
+    best_i = torch.zeros((B, G, L), dtype=torch.int64, device=dev)
     coef_g = coef.view(-1, group, tc, coef.shape[1])
     rows_ix = torch.arange(tc, device=dev)
     active = (nvisit > 0)[:, None] & ~(entry[:, :1] > tl.amax(dim=2))
@@ -361,7 +368,7 @@ def _sweep_plain(nvisit, order, entry, o, d, t_last, coef, fetch, *,
         bi = best_i[ab, gb]
         for g in range(group):
             tm = _chunk_t(ob[ab, gb], db[ab, gb], wb[ab, gb],
-                          coef_g[c, g][:, None], t_min)       # (n, 32, tc)
+                          coef_g[c, g][:, None], t_min)       # (n, L, tc)
             local_t = tm.amin(dim=-1)
             local_i = torch.where(tm == local_t[..., None], rows_ix,
                                   tc).amin(dim=-1)
@@ -402,10 +409,43 @@ def sweep_smem_limit(index) -> int:
         index or 0).shared_memory_per_block_optin
 
 
+_SPLITS = (1, 2, 4, 8)   # the row slices a lane K1 is built for
+
+
+def _sweep_split(n_ctas: int, resident: int) -> int:
+    """K1's row slices a lane (P) for a launch of n_ctas CTAs at P = 1 on a
+    card that holds `resident` of them at once: the largest P in _SPLITS
+    with n_ctas * P <= resident, and 1 when even P = 2 does not fit (a
+    launch that fills the card keeps one thread a lane)."""
+    if n_ctas <= 0:
+        return 1
+    return max(p for p in _SPLITS if p == 1 or n_ctas * p <= resident)
+
+
+@functools.lru_cache(maxsize=None)
+def sweep_resident(index, tc: int) -> int:
+    """K1's CTAs (P = 1, chunk size tc) that card `index` holds at once:
+    the occupancy calculator's CTAs an SM times the SMs."""
+    from radarays_ros_tpu_torch import cuda_build
+
+    n = ctypes.c_int(0)
+    with torch.cuda.device(index or 0):
+        cuda_build.check(cuda_build.build().lib.rr_sweep_occupancy(
+            tc, 1, ctypes.byref(n)), "rr_sweep_occupancy")
+    return n.value * torch.cuda.get_device_properties(
+        index or 0).multi_processor_count
+
+
 def sweep(nvisit, order, entry, o, d, t_last, coef, fetch, *, tc: int,
-          group: int, t_min: float):
+          group: int, t_min: float, _split=None):
     """K1 wrapper: plain version on CPU tensors, the CUDA kernel rr_sweep
-    on CUDA tensors. Same arguments and results as _sweep_plain."""
+    on CUDA tensors. Same arguments and results as _sweep_plain, at
+    lanes = 32 // P on the card.
+
+    P (row slices a lane) follows from the launch's shape and the card
+    (_sweep_split); `_split` sets it, for the tests. Counters: `launches`,
+    `split_launches` (those with P > 1) and `last_split` (the P last
+    chosen)."""
     if o.device.type == "cpu":
         return _sweep_plain(nvisit, order, entry, o, d, t_last, coef, fetch,
                             tc=tc, group=group, t_min=t_min)
@@ -431,6 +471,11 @@ def sweep(nvisit, order, entry, o, d, t_last, coef, fetch, *, tc: int,
         raise ChunkSizeRefused(f"sweep: chunk size {tc} stages {smem} bytes "
                                f"of shared memory a CTA; the card gives at "
                                f"most {limit}")
+    split = _split or _sweep_split(Rp // 128,
+                                   sweep_resident(o.device.index, tc))
+    if split not in _SPLITS:
+        raise ValueError(f"sweep: {split} row slices a lane; the kernel "
+                         f"takes {_SPLITS}")
     best_t = torch.empty(Rp, dtype=torch.float32, device=o.device)
     best_i = torch.empty(Rp, dtype=torch.int32, device=o.device)
     rows = torch.empty(Rp, 16, dtype=torch.float32, device=o.device)
@@ -439,13 +484,17 @@ def sweep(nvisit, order, entry, o, d, t_last, coef, fetch, *, tc: int,
         nvisit.data_ptr(), order.data_ptr(), entry.data_ptr(), ce,
         o.data_ptr(), d.data_ptr(), t_last.data_ptr(), coef.data_ptr(),
         fetch.data_ptr(), B, Rp // B, tc, group, float(t_min), _INSIDE_EPS,
-        best_t.data_ptr(), best_i.data_ptr(), rows.data_ptr(),
+        best_t.data_ptr(), best_i.data_ptr(), rows.data_ptr(), split,
         cuda_build.stream_ptr(o)), "rr_sweep")
     sweep.launches += 1
+    sweep.split_launches += split > 1
+    sweep.last_split = split
     return best_t, best_i, rows
 
 
 sweep.launches = 0
+sweep.split_launches = 0
+sweep.last_split = 1
 
 
 # ------------------------------------------------------------ the trace

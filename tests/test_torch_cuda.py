@@ -47,9 +47,10 @@ def scene(dev):
     return st
 
 
-def _fan(n, dev, seed=0):
+def _fan(n, dev, seed=0, n_az=64):
     rng = np.random.default_rng(seed)
-    az = np.repeat(np.linspace(0, 2 * np.pi, 64, endpoint=False), n // 64)
+    az = np.repeat(np.linspace(0, 2 * np.pi, n_az, endpoint=False),
+                   n // n_az)
     el = rng.normal(0.05, 0.2, az.shape[0])
     d = np.stack([np.cos(el) * np.cos(az), np.cos(el) * np.sin(az),
                   np.sin(el)], -1).astype(np.float32)
@@ -59,11 +60,12 @@ def _fan(n, dev, seed=0):
             torch.from_numpy(bud).to(dev))
 
 
-def _kernels_equal_plain(scene, o, d, bud, rb, group):
+def _kernels_equal_plain(scene, o, d, bud, rb, group, split=None):
     """The culling prep (K3 and K2, or K4 under 256 supergroups, as the
     trace's _run_prep picks) and K1 against their plain versions bit for
-    bit on one ray set; returns the plain sweep's visits per 32-lane group
-    and best_t."""
+    bit on one ray set, K1 at `split` row slices a lane (None: the
+    wrapper's rule) against the plain version at its group width;
+    returns the plain sweep's visits per group and best_t."""
     o, d, inv_d, bud, lo, hi, C2 = CT._prep_inputs(scene, o, d, bud,
                                                     ray_block=rb, group=group)
     n0 = CT.sweep.launches
@@ -75,14 +77,29 @@ def _kernels_equal_plain(scene, o, d, bud, rb, group):
     nvisit, order, entry = CT._rank(e_k[:, :C2])
     args = (nvisit, order, entry, o, d, t_k, scene.coef, scene.fetch)
     kw = dict(tc=scene.chunk_size, group=group, t_min=0.0)
-    got = CT.sweep(*args, **kw)
+    got = CT.sweep(*args, **kw, _split=split)
+    P = CT.sweep.last_split
+    assert split in (None, P)
     bt_p, bi_p, rows_p, visits = CT._sweep_plain(*args, **kw,
-                                                 with_visits=True)
+                                                 with_visits=True,
+                                                 lanes=32 // P)
     torch.cuda.synchronize()
     assert CT.sweep.launches == n0 + 1
     for x, y in zip(got, (bt_p, bi_p, rows_p)):
         assert torch.equal(x, y)
     return visits, bt_p
+
+
+def _lanes(kind, dev):
+    """8,269 rays of a fan ("fan"), or of the fan with budget-0 (dead)
+    lanes, whole dead groups and steep sky rays ("dead_sky")."""
+    o, d, bud = _fan(8192 + 77, dev, seed=0 if kind == "fan" else 4)
+    if kind == "dead_sky":
+        d[::7, 2] = 0.9
+        d = d / torch.linalg.norm(d, dim=1, keepdim=True)
+        bud[::3] = 0.0
+        bud[:96] = 0.0
+    return o, d, bud
 
 
 @pytest.mark.parametrize("rb,group,lanes", [
@@ -95,12 +112,7 @@ def test_prep_and_sweep_kernels_equal_plain(scene, dev, rb, group, lanes):
     groups and steep sky rays, and groups 2 and 4 take supergroups of 2
     and 4 chunks (the auto group of scenes above 12,288 and 24,576
     chunks)."""
-    o, d, bud = _fan(8192 + 77, dev, seed=0 if lanes == "fan" else 4)
-    if lanes == "dead_sky":
-        d[::7, 2] = 0.9
-        d = d / torch.linalg.norm(d, dim=1, keepdim=True)
-        bud[::3] = 0.0
-        bud[:96] = 0.0
+    o, d, bud = _lanes(lanes, dev)
     if group == 1:
         o_p, _, inv_d, bud_p, lo, hi, _ = CT._prep_inputs(
             scene, o, d, bud, ray_block=rb, group=1)
@@ -115,6 +127,78 @@ def test_prep_and_sweep_kernels_equal_plain(scene, dev, rb, group, lanes):
     else:
         assert (visits.view(-1)[:3] == 0).all()
         assert torch.isfinite(bt).float().mean() > 0.2
+
+
+def _tied(scene):
+    """`scene` with rows 4m + 2 and 4m + 3 of every chunk replaced by
+    copies of rows 4m and 4m + 1 (the chunk boxes still hold every row):
+    a hit on a copy ties with its original, one row pair earlier and so in
+    another row slice; the lower row must win."""
+    src = torch.arange(scene.coef.shape[0], device=scene.coef.device)
+    src = src - 2 * (src % 4 >= 2)
+    return scene._replace(**{k: getattr(scene, k)[src].contiguous()
+                             for k in ("verts", "obj_ids", "normals",
+                                       "coef", "fetch")})
+
+
+@pytest.mark.parametrize("case", ["one_frame", "dead_sky_1", "dead_sky_2",
+                                  "dead_sky_4", "ties"])
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+def test_sweep_row_slices_equal_plain(scene, dev, split, case):
+    """K1 at each number of row slices a lane, bit for bit against the
+    plain version at its group width: one KAIST frame's shape (400 x 50
+    rays, 10 blocks of 2,048), the dead and sky lanes at prep groups 1, 2
+    and 4, and a scene of tied rows, whose winners must be the lower
+    copies."""
+    st, group = scene, 1
+    if case == "one_frame":
+        o, d, bud = _fan(400 * 50, dev, seed=2, n_az=400)
+    elif case == "ties":
+        st = _tied(scene)
+        o, d, bud = _lanes("fan", dev)
+    else:
+        o, d, bud = _lanes("dead_sky", dev)
+        group = int(case[-1])
+    _, bt = _kernels_equal_plain(st, o, d, bud, 2048, group, split=split)
+    assert torch.isfinite(bt).float().mean() > 0.2
+    if case == "ties":
+        tri = CT.sweep(*_sweep_args(st, o, d, bud), tc=st.chunk_size,
+                       group=1, t_min=0.0, _split=split)[1]
+        hit = tri[tri >= 0]
+        assert hit.numel() > 1000 and bool((hit % 4 < 2).all())
+
+
+def _sweep_args(st, o, d, bud, rb=2048, group=1):
+    """K1's positional arguments for rays o, d, bud after the kernels'
+    prep and ranking."""
+    o, d, inv_d, bud, lo, hi, C2 = CT._prep_inputs(st, o, d, bud,
+                                                    ray_block=rb, group=group)
+    e, t = CT._run_prep(lo, hi, o, inv_d, bud, t_max=1000.0, RB=rb,
+                        kernels=True)
+    nvisit, order, entry = CT._rank(e[:, :C2])
+    return nvisit, order, entry, o, d, t, st.coef, st.fetch
+
+
+def test_sweep_split_rule_on_card(scene, dev):
+    """The wrapper's row slices follow _sweep_split of the launch's CTAs
+    and the card's resident CTAs; a launch that fills the card takes one
+    thread a lane, and `split_launches` counts the others."""
+    resident = CT.sweep_resident(dev.index, scene.chunk_size)
+    assert resident >= torch.cuda.get_device_properties(
+        0).multi_processor_count
+    kw = dict(tc=scene.chunk_size, group=1, t_min=0.0)
+    for n in (400 * 50, resident * 128):
+        o, d, bud = _fan(n, dev, seed=2, n_az=400 if n == 20000 else 64)
+        args = _sweep_args(scene, o, d, bud)
+        n_ctas = args[3].shape[0] // 128
+        s0 = CT.sweep.split_launches
+        CT.sweep(*args, **kw)
+        want = CT._sweep_split(n_ctas, resident)
+        assert CT.sweep.last_split == want
+        assert CT.sweep.split_launches == s0 + (want > 1)
+    assert want == 1
+    with pytest.raises(ValueError, match="row slices"):
+        CT.sweep(*args, **kw, _split=3)
 
 
 def test_kernels_equal_plain_on_second_bounce(scene, dev):

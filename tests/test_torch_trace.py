@@ -360,3 +360,55 @@ def test_group_termination_equals_block_wide(scenes, rb, group):
     assert (visits.view(-1)[:2] == 0).all()
     assert int(visits.sum()) < int(visits.amax(dim=1).sum()) * visits.shape[1]
 
+
+
+@pytest.mark.parametrize("rb,group", [(128, 1), (2048, 2)])
+@pytest.mark.parametrize("lanes", [16, 8, 4])
+def test_narrower_groups_equal_block_wide(scenes, rb, group, lanes):
+    """The plain K1 with termination per group of 32 / P lanes (K1 at P
+    row slices a lane: a warp holds 32 / P lanes) gives the block-wide
+    loop's winners and distances on every lane whose nearest hit lies
+    within its budget, and no group visits more than the 32-lane group
+    that holds it."""
+    st, _ = scenes
+    o, d, bud = _fan(4096 + 37, seed=11, el_lo=-0.3, el_hi=1.2,
+                     budgets=(0.0, 4.0, 25.0, 1000.0))
+    bud[:64] = 0.0
+    o, d, inv_d, bud, lo, hi, C2 = CT._prep_inputs(
+        st, torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(bud),
+        ray_block=rb, group=group)
+    entry, t_last = CT._run_prep(lo, hi, o, inv_d, bud, t_max=1000.0, RB=rb,
+                                 kernels=False)
+    nvisit, order, ranked = CT._rank(entry[:, :C2])
+    args = (nvisit, order, ranked, o, d, t_last, st.coef, st.fetch)
+    kw = dict(tc=st.chunk_size, group=group, t_min=0.0)
+    bt, bi, rows, visits = CT._sweep_plain(*args, **kw, with_visits=True,
+                                           lanes=lanes)
+    *_, visits32 = CT._sweep_plain(*args, **kw, with_visits=True)
+    bt_w, bi_w = _sweep_block_wide(*args, **kw)
+    cap = torch.clamp_max(bud, 1000.0)
+    ok, ok_w = (bt <= cap) & (cap > 0), (bt_w <= cap) & (cap > 0)
+    assert torch.equal(ok, ok_w)
+    assert 0.1 < float(ok.float().mean()) < 0.9
+    assert torch.equal(bt[ok], bt_w[ok]) and torch.equal(bi[ok], bi_w[ok])
+    assert torch.equal(rows[ok], st.fetch[bi[ok].long()])
+    assert visits.shape == (nvisit.shape[0], o.shape[0] // nvisit.shape[0]
+                            // lanes)
+    per32 = visits.view(visits.shape[0], -1, 32 // lanes)
+    assert (per32 <= visits32[..., None]).all()
+    assert int(visits.sum()) < int(visits32.sum()) * (32 // lanes)
+
+
+@pytest.mark.parametrize("n_ctas,resident,split", [
+    (160, 660, 4),       # one KAIST frame, 10 blocks of 2,048 rays
+    (3200, 660, 1),      # a batch of 20
+    (480, 660, 1),       # the fit's 3 frames
+    (0, 660, 1),         # no blocks
+    (700, 660, 1),       # more CTAs than the card holds
+    (80, 660, 8), (300, 660, 2), (330, 660, 2), (82, 660, 8),
+    (83, 660, 4)])
+def test_sweep_split_rule(n_ctas, resident, split):
+    """K1's row slices a lane: the largest P in {1, 2, 4, 8} whose
+    n_ctas * P CTAs the card holds at once, 1 when even P = 2 does not
+    fit."""
+    assert CT._sweep_split(n_ctas, resident) == split
