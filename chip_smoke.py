@@ -182,11 +182,15 @@ Phases (one line of figures each; any failure raises and exits non-zero):
      scene at batches of 4 and 20 (K1, K2, K3, K5 in the 1M graphs; K1,
      K4, K5 in the 10k graph); a replay with new poses, materials and beam
      width against the eager frame for those values with no new capture,
-     and a new cfg capturing a second graph; each graph's capture seconds
-     and pool MiB; b. frames/s eager against compiled in turns (eager,
-     compiled, compiled, eager) at 1M, batches of 4 and 20, and the
-     compiled path's launches from 0 over its timed batches (each
-     replay's recorded launches); d. phase 7's fit through
+     and a new cfg capturing a second graph; portbench's kaist02-10m
+     scene (9,960,002 triangles, prep group 4 by the port's rule) at a
+     batch of 20 on its ring road's first poses, then one more replay
+     adding its K1 launches to `sweep.grouped_launches` with `last_group`
+     4; each graph's capture seconds and pool MiB; b. frames/s eager
+     against compiled in turns (eager, compiled, compiled, eager) at 1M,
+     batches of 4 and 20, and the compiled path's launches from 0 over
+     its timed batches (each replay's recorded launches); d. phase 7's
+     fit through
      opti.optimize.value_and_grad (forward and backward in one graph)
      against the eager step: loss and gradient bitwise over 3 Adam steps,
      K5's backward once and table_grad once a pass in the graph, steady
@@ -238,7 +242,8 @@ batch's profile with the copies made inside bin_signals; the phase
 in one call compare their kernels on one card.
 
 With --compiled it runs phase 14 alone (its profiles included) on the
-1M and 10k scenes and the fit's, and prints one JSON line.
+1M and 10k scenes, the 10M route and the fit's, and prints one JSON
+line.
 
 With --fit-profile [ROOT] it runs phase 7's fit setup through the port
 under ROOT: steady steps/s, one steady step under the profiler (device
@@ -3363,19 +3368,19 @@ def frames_equal(a, b) -> bool:
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-def jit_vs_eager(tag: str, st, params, cfg, n: int) -> tuple:
+def jit_vs_eager(tag: str, st, params, cfg, n: int, poses=None) -> tuple:
     """Phase 14a on one scene and config: a batch of n through
     simulate_frames_jit (the first call captures: the eager warm-up is its
     result; then replays) against simulate_frames on the same inputs — on
     the generator path (seeds 0-2) and on explicit draws and Perlin
-    offsets; every batch bit-identical, one capture. Returns (figures,
-    the graph)."""
+    offsets; every batch bit-identical, one capture. `poses` (n, 7) on the
+    card, default poses_on(n). Returns (figures, the graph)."""
     import torch
 
     from radarays_ros_tpu_torch.sim import pipeline as P
 
     dev = st.device
-    poses = poses_on(n, dev)
+    poses = poses_on(n, dev) if poses is None else poses
     c0 = P.frame_graphs.captures
     bits = []
     for seed in range(3):
@@ -3408,6 +3413,56 @@ def jit_vs_eager(tag: str, st, params, cfg, n: int) -> tuple:
           f"14a {tag}: {out['captures']} captures, {g.replays} replays")
     check(out["mean_pixel"] > 0, f"14a {tag}: empty frames")
     return out, g
+
+
+def route_10m(dev) -> dict:
+    """Phase 14a at 10M on the route: portbench's kaist02-10m scene, built
+    as the benchmark builds it, at the prep group the port's rule picks
+    (4), and a batch of 20 of its ring road's first poses through
+    jit_vs_eager; then one more replay, which adds the graph's K1 launches
+    (one a bounce) to `sweep.grouped_launches` and leaves `last_group` at
+    4. The graph is dropped after."""
+    import numpy as np
+    import torch
+
+    from portbench import system as S
+    from portbench.scene import loop_pose
+    from radarays_ros_tpu_torch.sim import pipeline as P
+    from radarays_ros_tpu_torch.trace import cuda_trace as CT
+
+    with open(os.path.join(HERE, "portbench", "configs",
+                           "kaist02-10m.json")) as f:
+        conf = json.load(f)
+    torch.cuda.reset_peak_memory_stats(dev)
+    system = S.build(conf, dev)
+    st, cfg = system.scene, system.cfg
+    params = S.port_params(S.material_table(conf["materials"], dev),
+                           system.object_materials, conf["beam_width_deg"])
+    tr = conf["trajectory"]
+    phi = (np.radians(tr["phase_deg"])
+           + tr["step_m"] / tr["radius"] * np.arange(BENCH_BATCH))
+    poses = torch.from_numpy(loop_pose(phi, tr["radius"],
+                                       tr["height"])).to(dev)
+    out, g = jit_vs_eager("10m route", st, params, cfg, BENCH_BATCH,
+                          poses=poses)
+    g0 = CT.sweep.grouped_launches
+    g(g.static_in)
+    torch.cuda.synchronize()
+    out.update(n_chunks=st.n_chunks,
+               prep_group=CT._auto_prep_group(st.n_chunks),
+               build_s=system.build_s,
+               grouped_launches_a_replay=CT.sweep.grouped_launches - g0,
+               last_group=CT.sweep.last_group,
+               peak_allocated_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    log(f"[14a 10m route, counters] {json.dumps(out)}")
+    check(out["prep_group"] == 4 and out["last_group"] == 4
+          and out["grouped_launches_a_replay"] == cfg.n_reflections,
+          f"14a 10m route: prep group {out['prep_group']}, last group "
+          f"{out['last_group']}, {out['grouped_launches_a_replay']} grouped "
+          "launches a replay")
+    for key in [k for k, v in P.frame_graphs.graphs.items() if v is g]:
+        del P.frame_graphs.graphs[key]
+    return out
 
 
 def explicit_inputs(cfg, n: int, dev, seed: int) -> dict:
@@ -3632,6 +3687,8 @@ def compiled_phase(dev, smi: str, host5, n_objects5: int, cfg5) -> dict:
     # keep the 1M batch-of-20 graph alone for the profile
     for key in [k for k, g in P.frame_graphs.graphs.items() if g is not g20]:
         del P.frame_graphs.graphs[key]
+    # a: the 10M scene on the route (its graph dropped after)
+    out["a_10m_route_batch_20"] = route_10m(dev)
     out["phase_s"] = time.perf_counter() - t_phase
 
     def profiles():

@@ -155,6 +155,14 @@ def _median_split_order_sah(centers: np.ndarray, tri_lo: np.ndarray,
     return out
 
 
+def padded_chunks(n_triangles: int, chunk_size: int) -> int:
+    """The chunks a scene of n_triangles is built into: whole chunks, their
+    count rounded up to a multiple of 8 so that every supergroup size in
+    {1, 2, 4, 8} divides it."""
+    whole = -(-n_triangles // chunk_size)
+    return -(-whole // 8) * 8
+
+
 def ordering_variant() -> str:
     """The chunk ordering, from RADARAYS_ORDER_VARIANT (the reference's
     variable): "sah" (default) or "median"."""
@@ -409,11 +417,9 @@ class Scene:
         verts, obj_ids = self.verts, self.obj_ids
         tc = self.chunk_size
         # pad first (far degenerate triangles cluster into their own
-        # leaves); the chunk count is rounded to a multiple of 8 so every
-        # supergroup size in {1, 2, 4, 8} divides it
+        # leaves)
         T = verts.shape[0]
-        C = -(-T // tc)
-        C = -(-C // 8) * 8
+        C = padded_chunks(T, tc)
         pad = C * tc - T
         if pad:
             far = np.full((pad, 3, 3), 1e8, np.float32)

@@ -32,9 +32,10 @@ every plain version does.
 
 Launch counts: the kernel wrappers count launches in Python, which a
 replay does not run. A capture records each wrapper's counters (COUNTERS:
-its launches, and K1's launches with row slices) and takes them back
-(nothing ran), and every replay adds them, so `<wrapper>.launches` stays
-the count of kernels the card ran.
+its launches, and K1's launches with row slices and those over
+supergroups of more than one chunk) and takes them back (nothing ran),
+and every replay adds them, so `<wrapper>.launches` stays the count of
+kernels the card ran.
 
 Spans (utils/profiling.py): a graph's build is `rr.graph.build`, each
 replay's launch `rr.graph.replay`.
@@ -67,7 +68,8 @@ def launch_counts() -> dict:
     return {k: fn.launches for k, fn in kernel_wrappers().items()}
 
 
-COUNTERS = ("launches", "split_launches")   # what a replay adds to
+# what a replay adds to
+COUNTERS = ("launches", "split_launches", "grouped_launches")
 
 
 def _counts(wrappers) -> dict:

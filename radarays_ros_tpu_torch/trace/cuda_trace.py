@@ -445,7 +445,9 @@ def sweep(nvisit, order, entry, o, d, t_last, coef, fetch, *, tc: int,
     P (row slices a lane) follows from the launch's shape and the card
     (_sweep_split); `_split` sets it, for the tests. Counters: `launches`,
     `split_launches` (those with P > 1) and `last_split` (the P last
-    chosen)."""
+    chosen), `grouped_launches` (those with group > 1: each walks
+    supergroups of `group` chunks) and `last_group` (the group last
+    launched)."""
     if o.device.type == "cpu":
         return _sweep_plain(nvisit, order, entry, o, d, t_last, coef, fetch,
                             tc=tc, group=group, t_min=t_min)
@@ -489,12 +491,16 @@ def sweep(nvisit, order, entry, o, d, t_last, coef, fetch, *, tc: int,
     sweep.launches += 1
     sweep.split_launches += split > 1
     sweep.last_split = split
+    sweep.grouped_launches += group > 1
+    sweep.last_group = group
     return best_t, best_i, rows
 
 
 sweep.launches = 0
 sweep.split_launches = 0
 sweep.last_split = 1
+sweep.grouped_launches = 0
+sweep.last_group = 1
 
 
 # ------------------------------------------------------------ the trace

@@ -1071,6 +1071,51 @@ def test_compiled_frames_equal_eager_on_card(small_scene, dev, engine):
     assert P.frame_graphs.last().replays == 2
 
 
+def test_compiled_frames_equal_eager_at_10m_on_the_route(dev):
+    """portbench's kaist02-10m deployment, built as the benchmark builds it
+    (9,960,002 triangles, 38,912 chunks: prep group 4 by the port's rule):
+    a batch of 20 on the ring road's first poses through
+    simulate_frames_jit (a capture, then a replay) bit for bit against
+    simulate_frames; the capture and the replay each add one grouped K1
+    launch a bounce and leave `last_group` at 4."""
+    import json
+    from pathlib import Path
+
+    from portbench import system as S
+    from portbench.generator import cone_draws
+    from portbench.scene import loop_pose
+    from radarays_ros_tpu_torch.sim import pipeline as P
+
+    conf = json.loads((Path(__file__).resolve().parents[1] / "portbench"
+                       / "configs" / "kaist02-10m.json").read_text())
+    system = S.build(conf, dev)
+    st, cfg = system.scene, system.cfg
+    assert st.n_chunks == 38_912 and CT._auto_prep_group(st.n_chunks) == 4
+    params = S.port_params(S.material_table(conf["materials"], dev),
+                           system.object_materials, conf["beam_width_deg"])
+    tr = conf["trajectory"]
+    poses = torch.from_numpy(loop_pose(
+        np.radians(tr["phase_deg"]) + tr["step_m"] / tr["radius"]
+        * np.arange(20), tr["radius"], tr["height"]))
+    gen = torch.Generator(dev).manual_seed(3)
+    c0 = P.frame_graphs.captures
+    try:
+        for _ in range(2):
+            kw = dict(cone_draws=cone_draws(gen, 20, cfg),
+                      random_begin=torch.randint(0, 1000, (20, cfg.n_angles),
+                                                 generator=gen, device=dev))
+            g0 = CT.sweep.grouped_launches
+            got = P.simulate_frames_jit(st, params, cfg, poses, **kw)
+            assert CT.sweep.grouped_launches - g0 == cfg.n_reflections
+            assert CT.sweep.last_group == 4
+            want = P.simulate_frames(st, params, cfg, poses.to(dev), **kw)
+            assert got.image_u8.max() > 0 and _frames_equal(got, want)
+        assert P.frame_graphs.captures - c0 == 1
+        assert P.frame_graphs.last().replays == 1
+    finally:
+        P.frame_graphs.clear()
+
+
 def test_compiled_frame_replays_new_values_without_capture(small_scene,
                                                            dev):
     """New poses, materials and beam width replay the graph (no capture)

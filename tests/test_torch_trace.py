@@ -13,6 +13,9 @@ prep; the same buildings at chunk size 32 have 80 chunks, under 256
 supergroups, so both take the flat prep (K4).
 """
 
+import json
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -25,7 +28,8 @@ from radarays_ros_tpu.trace import pallas_trace as JP
 from radarays_ros_tpu.trace.api import trace as jx_trace
 
 from radarays_ros_tpu_torch.geom.primitives import make_urban_scene
-from radarays_ros_tpu_torch.geom.scene import INVALID_OBJ_ID, Scene
+from radarays_ros_tpu_torch.geom.scene import (INVALID_OBJ_ID, Scene,
+                                               padded_chunks)
 from radarays_ros_tpu_torch.trace import cuda_trace as CT
 from radarays_ros_tpu_torch.trace.api import resolve_engine, trace
 
@@ -412,3 +416,53 @@ def test_sweep_split_rule(n_ctas, resident, split):
     n_ctas * P CTAs the card holds at once, 1 when even P = 2 does not
     fit."""
     assert CT._sweep_split(n_ctas, resident) == split
+
+
+@pytest.mark.parametrize("group", [1, 4])
+def test_sweep_counts_its_group_on_the_plain_path(scenes, group,
+                                                  monkeypatch):
+    """On the CPU the K1 wrapper runs the plain version at the caller's
+    group (counted here), and its launch counters (`launches`,
+    `grouped_launches`, `last_group`) stay where they were: they count
+    the card's launches only, which the card tests check."""
+    st, _ = scenes
+    o, d, bud = _fan(256, seed=5)
+    groups = []
+    real = CT._sweep_plain
+
+    def plain(*a, group, **k):
+        groups.append(group)
+        return real(*a, group=group, **k)
+
+    monkeypatch.setattr(CT, "_sweep_plain", plain)
+    before = (CT.sweep.launches, CT.sweep.grouped_launches,
+              CT.sweep.last_group)
+    CT.sweep_winners(st, torch.from_numpy(o), torch.from_numpy(d),
+                     torch.from_numpy(bud), t_min=0.0, t_max=1000.0,
+                     ray_block=RB, group=group, kernels=True)
+    assert groups and set(groups) == {group}
+    assert (CT.sweep.launches, CT.sweep.grouped_launches,
+            CT.sweep.last_group) == before
+
+
+@pytest.mark.parametrize("config,triangles,chunks,group", [
+    ("kaist02-1m", 996_002, 3_896, 1), ("kaist02-10m", 9_960_002, 38_912, 4)])
+def test_benchmark_scenes_pick_their_prep_group(config, triangles, chunks,
+                                                group):
+    """The benchmark's urban scenes counted without building them: a box is
+    12 triangles and the ground 2, the build pads the chunks to a multiple
+    of 8, and the port's rule picks the prep group from that count (no
+    configuration sets it)."""
+    from portbench.scenes import urban
+
+    conf = json.loads((Path(__file__).resolve().parents[1] / "portbench"
+                       / "configs" / f"{config}.json").read_text())
+    s = conf["scene"]
+    tiny = {k: v for k, v in s.items() if k not in ("kind", "chunk_size")}
+    verts, _, n_obj = urban.soup(**{**tiny, "n_buildings": 3})
+    assert verts.shape[0] == 2 + 12 * 3 and n_obj == 4
+    n = 2 + 12 * s["n_buildings"]
+    assert n == triangles
+    assert padded_chunks(n, s["chunk_size"]) == chunks
+    assert CT._auto_prep_group(chunks) == group
+    assert "trace_prep_group" not in conf["radar"]
