@@ -29,7 +29,9 @@ Phases (one line of figures each; any failure raises and exits non-zero):
      versions: one line per bounce with the valid share and hit rate of
      the lanes, the ranked chunks (nvisit mean and max), K1's visits as the
      plain version's loop counts them (per 32-lane group, per 128-lane
-     CTA, per block), the visits the lanes need (per lane, the ranked
+     CTA, per block), the stages its box gate let a group test
+     (tested_group_mean, and tested_share of the visits times the prep
+     group), the visits the lanes need (per lane, the ranked
      entries of its block <= min(best_t, t_last) at the end), the chunks
      each lane keeps itself (its own slab test, entry <= min(best_t,
      t_last)), and each kernel's plain ms, bitwise check and bound; K5 and
@@ -236,9 +238,11 @@ With --kernel-times the script runs, through the port found under ROOT
 those named after ROOT):
 every trace kernel on each bounce and K5's forward, each checked against
 its plain version and timed by device time and wrapper events, and the
-batch's profile with the copies made inside bin_signals; the phase
-`live1` instead times K1 alone at one frame on the benchmark's loop (phase
-5's one-frame rows). It prints one JSON line. Two checkouts run in turns
+batch's profile with the copies made inside bin_signals; the phases
+`live1`, `stream20` and `10m` instead time K1 alone on the benchmark's
+loop, bounce by bounce with the box gate's `tested_share` (phase 5's
+one-frame rows; a batch of 20 on kaist02-1m's ring road; a batch of 20 on
+kaist02-10m's route). It prints one JSON line. Two checkouts run in turns
 in one call compare their kernels on one card.
 
 With --compiled it runs phase 14 alone (its profiles included) on the
@@ -588,7 +592,10 @@ def sweep_vs_plain(st, e_k, C2: int, o, d, t_k, bud, reps: int,
     their block's ranking (per lane, the ranked entries of its block <=
     min(best_t, t_last) at the end), and the chunks each lane keeps itself
     (lane_kept on the chunk boxes = (lo, hi, inv_d), whatever the group),
-    from which the bound is counted."""
+    from which the bound is counted, and the stages (chunks) the box gate
+    let each group test: `tested_group_mean` and `tested_share`, the
+    stages tested over the visits times the group (a checkout without
+    the gate tests every stage it visits: 1)."""
     import torch
 
     from radarays_ros_tpu_torch.trace import cuda_trace as CT
@@ -596,14 +603,19 @@ def sweep_vs_plain(st, e_k, C2: int, o, d, t_k, bud, reps: int,
     nvisit, order, entry = CT._rank(e_k[:, :C2])
     args = (nvisit, order, entry, o, d, t_k, st.coef, st.fetch)
     kw = dict(tc=st.chunk_size, group=group, t_min=0.0)
+    gated = "inv_d" in inspect.signature(CT.sweep).parameters
+    if gated:
+        args += (boxes[2], bud, *boxes[:2])
+        kw["t_max"] = 1000.0
     if split is not None:
         kw["_split"] = split
     bt_k, bi_k, rows_k = CT.sweep(*args, **kw)
     kw.pop("_split", None)
     P = getattr(CT.sweep, "last_split", 1)
     width = {"lanes": 32 // P} if P > 1 else {}
-    bt_p, bi_p, rows_p, visits = CT._sweep_plain(*args, **kw, **width,
-                                                 with_visits=True)
+    bt_p, bi_p, rows_p, visits, *tested = CT._sweep_plain(
+        *args, **kw, **width, with_visits=True)
+    tested = tested[0] if gated else visits * group
     n_win = int((bi_k != bi_p).sum())
     check(n_win == 0, f"K1 sweep: {n_win} winners differ")
     err = max(max_abs(bt_k, bt_p), max_abs(rows_k, rows_p))
@@ -631,6 +643,8 @@ def sweep_vs_plain(st, e_k, C2: int, o, d, t_k, bud, reps: int,
         visits_block_max=int(block_visits.max()),
         visits_cta128_mean=float(cta.float().mean()),
         visits_group32_mean=float(visits.float().mean()),
+        tested_group_mean=float(tested.float().mean()),
+        tested_share=float(tested.sum() / max(1, int(visits.sum()) * group)),
         visits_needed_lane_mean=float(needed.float().mean()),
         visits_needed_lane_max=int(needed.max()),
         chunks_kept_lane_mean=float(kept.float().mean()),
@@ -1164,6 +1178,8 @@ def frames_phase(tag: str, st, params, cfg, dev, expect_zero=(),
             visits_block_max=s["visits_block_max"],
             visits_cta128_mean=s["visits_cta128_mean"],
             visits_group32_mean=s["visits_group32_mean"],
+            tested_group_mean=s["tested_group_mean"],
+            tested_share=s["tested_share"],
             visits_needed_lane_mean=s["visits_needed_lane_mean"],
             visits_needed_lane_max=s["visits_needed_lane_max"],
             chunks_kept_lane_mean=s["chunks_kept_lane_mean"],
@@ -1202,12 +1218,15 @@ def frames_phase(tag: str, st, params, cfg, dev, expect_zero=(),
     return frames, launches, by_bounce, k5, fvp
 
 
-def one_frame_k1(dev, reps: int, splits=(None, 1)) -> dict:
-    """K1 at one frame on the benchmark's loop: the scene, first pose and
-    held cone draws of portbench's kaist02-1m configuration under its
-    live1 traffic (400 x 50 rays a bounce, 10 ray blocks), bounce by
-    bounce through the pipeline's _bounce. On each bounce, K3/K2 and K1
-    against their plain versions (kernels_vs_plain) once for each entry
+def one_frame_k1(dev, reps: int, splits=(None, 1), config="kaist02-1m",
+                 n_frames: int = 1) -> dict:
+    """K1 on the benchmark's loop: the scene, first n_frames poses (the
+    route's step apart) and held cone draws of portbench's `config`
+    (kaist02-1m: the ring road; kaist02-10m: the route) under its live1
+    traffic's held seed (400 x 50 rays a frame and bounce: 10 ray blocks
+    at one frame), bounce by bounce through the pipeline's _bounce. On
+    each bounce, K3/K2 and K1 against their plain versions
+    (kernels_vs_plain, at the scene's own prep group) once for each entry
     of `splits` (None: the wrapper's rule; 1: one thread a lane, the
     kernel without row slices), timed in phase 10. Returns (line, the
     rows by split then bounce)."""
@@ -1221,7 +1240,7 @@ def one_frame_k1(dev, reps: int, splits=(None, 1)) -> dict:
     from radarays_ros_tpu_torch.trace import cuda_trace as CT
 
     with open(os.path.join(HERE, "portbench", "configs",
-                           "kaist02-1m.json")) as f:
+                           f"{config}.json")) as f:
         conf = json.load(f)
     with open(os.path.join(HERE, "portbench", "traffic", "live1.json")) as f:
         held = json.load(f)["held_cone_seed"]
@@ -1230,9 +1249,10 @@ def one_frame_k1(dev, reps: int, splits=(None, 1)) -> dict:
     params = S.port_params(S.material_table(conf["materials"], dev),
                            system.object_materials, conf["beam_width_deg"])
     tr = conf["trajectory"]
-    pose = torch.from_numpy(loop_pose(np.radians([tr["phase_deg"]]),
-                                      tr["radius"], tr["height"]))
-    draws = cone_draws(torch.Generator(dev).manual_seed(held), 1, cfg)
+    pose = torch.from_numpy(loop_pose(
+        np.radians(tr["phase_deg"]) + tr["step_m"] / tr["radius"]
+        * np.arange(n_frames), tr["radius"], tr["height"]))
+    draws = cone_draws(torch.Generator(dev).manual_seed(held), n_frames, cfg)
     waves, sensor_pos = P.start_waves(params, cfg, pose, cone_draws=draws,
                                       device=dev)
     rows = {split: [] for split in splits}
@@ -1246,18 +1266,23 @@ def one_frame_k1(dev, reps: int, splits=(None, 1)) -> dict:
             k1 = kernels_vs_plain(system.scene, o, d, budget,
                                   rb=cfg.trace_ray_block, reps=reps,
                                   split=split)["sweep"]
-            check(k1["bitwise"], f"K1 at one frame, split {split}: "
-                  "not bitwise")
+            check(k1["bitwise"], f"K1 on the loop ({config}, "
+                  f"{n_frames} frames), split {split}: not bitwise")
             rows[split].append(k1)
             line[f"split_{split or 'rule'}"] = dict(
                 split=k1["split"], bitwise=k1["bitwise"],
                 split_launches=getattr(CT.sweep, "split_launches", 0) - s0,
                 visits_group_mean=k1["visits_group32_mean"],
+                tested_group_mean=k1["tested_group_mean"],
+                tested_share=k1["tested_share"],
+                chunks_kept_lane_mean=k1["chunks_kept_lane_mean"],
                 visits_cta128_mean=k1["visits_cta128_mean"],
                 bound_ms=k1["bound_ms"])
         bounces.append(line)
-    return dict(pose=pose[0].tolist(), ray_block=cfg.trace_ray_block,
+    return dict(config=config, n_frames=n_frames, pose=pose[0].tolist(),
+                ray_block=cfg.trace_ray_block,
                 n_triangles=system.scene.n_triangles,
+                group=CT._auto_prep_group(system.scene.n_chunks),
                 resident_ctas=(CT.sweep_resident(dev.index,
                                                  system.scene.chunk_size)
                                if hasattr(CT, "sweep_resident") else None),
@@ -1920,7 +1945,8 @@ def sweep_bounds(st, o, d, bud, rb: int) -> dict:
     e, t_last = CT.prep_hier(w, lo, hi, o, inv_d, bud, 1000.0, rb, rbt)
     nvisit, order, entry = CT._rank(e[:, :C2])
     bt, _, _ = CT.sweep(nvisit, order, entry, o, d, t_last, st.coef,
-                        st.fetch, tc=st.chunk_size, group=1, t_min=0.0)
+                        st.fetch, inv_d, bud, st.chunk_lo, st.chunk_hi,
+                        tc=st.chunk_size, group=1, t_min=0.0, t_max=1000.0)
     kept, seen = lane_kept(lo[:C2], hi[:C2], o, inv_d,
                            torch.clamp_max(bud, 1000.0),
                            torch.minimum(bt, t_last))
@@ -2551,8 +2577,8 @@ def huge_phase(dev, smi: str, scene5, host5, cache_dir: str) -> tuple:
              hit_rate=float(res[4].hit.float().mean()))
     for g, rows in groups.items():
         e[f"group_{g}"] = {k: {kk: v[kk] for kk in (
-            "bitwise", "plain_ms", "bound_ms", "bound_by")} for k, v in
-            rows.items()}
+            "bitwise", "plain_ms", "bound_ms", "bound_by", "tested_share")
+            if kk in v} for k, v in rows.items()}
     info["groups_1_vs_4"] = e
     log(f"[12e prep group 1 vs 4, bounce 1] {json.dumps(e)}")
     check(e["hit_equal"] and e["obj_equal"],
@@ -3285,6 +3311,13 @@ def ab_checks(lines: list, smi: str) -> None:
     launched(stages["frame_1m"], AT_1M)
 
 
+# --kernel-times phases of K1 alone on the benchmark's loop: (portbench
+# configuration, frames, timed launches)
+LOOP_PHASES = {"live1": ("kaist02-1m", 1, 50),
+               "stream20": ("kaist02-1m", 20, 10),
+               "10m": ("kaist02-10m", 20, 10)}
+
+
 def kernel_times(dev, smi: str, phases=("5", "6")) -> dict:
     """The --kernel-times run, through the port that sys.path finds first
     (main puts ROOT there): for each frame path in phases (phase 5's
@@ -3293,7 +3326,9 @@ def kernel_times(dev, smi: str, phases=("5", "6")) -> dict:
     the path on each bounce and K5's forward (kernels_vs_plain,
     bin_fwd_vs_plain: checked bit for bit, timed by kernel_ms), and one
     batch under the profiler (batch_profile: copies inside bin_signals);
-    for "live1", one_frame_k1's K1 rows. Every input comes from fixed
+    for "live1", "stream20" and "10m", one_frame_k1's K1 rows on the
+    loop (LOOP_PHASES: one frame at 1M, 20 at 1M, 20 at 10M, the 10M scene
+    built ~20-30 s). Every input comes from fixed
     seeds, so checkouts run in turns in one call compare their kernels on
     one card."""
     import torch
@@ -3307,11 +3342,14 @@ def kernel_times(dev, smi: str, phases=("5", "6")) -> dict:
     out = dict(package=os.path.dirname(os.path.dirname(cuda_draw.__file__)),
                gpu=smi, build_s=b.seconds)
     for tag in phases:
-        if tag == "live1":
-            # K1 alone at one frame on the benchmark's loop; a port
-            # without row slices runs its one kernel
-            split = (None, 1) if hasattr(CT, "sweep_resident") else (None,)
-            line, rows = one_frame_k1(dev, reps=50, splits=split)
+        if tag in LOOP_PHASES:
+            # K1 alone on the benchmark's loop; a port without row slices
+            # runs its one kernel
+            config, n_frames, reps = LOOP_PHASES[tag]
+            split = ((None, 1) if n_frames == 1
+                     and hasattr(CT, "sweep_resident") else (None,))
+            line, rows = one_frame_k1(dev, reps=reps, splits=split,
+                                      config=config, n_frames=n_frames)
             while DEFERRED:
                 DEFERRED.pop(0)()
             out[tag] = dict(line, kernel_ms=one_frame_times(rows))

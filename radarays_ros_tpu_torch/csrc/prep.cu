@@ -3,11 +3,12 @@
 // Replaces radarays_ros_tpu/trace/pallas_trace.py:_coarse_kernel (K3,
 // launched at :615 in _coarse_bitmap), :_prep_kernel_hier (K2, launched
 // at :673-709 in _run_prep_kernel) and :_prep_kernel (K4, the flat prep for
-// scenes under 256 supergroups, launched at :714-742). All slab-test rays against boxes with
-// the reference's _slab_keep (:466-485): per axis t0/t1 = (lo/hi - o) /
-// dir, t_near = max_k min(t0, t1), t_far = min_k max(t0, t1),
-// tn0 = max(t_near, 0), keep = t_far >= tn0 and t_near <= cap and cap > 0
-// with cap = min(t_max, budget).
+// scenes under 256 supergroups, launched at :714-742). All slab-test rays
+// against boxes with the reference's _slab_keep (:466-485; slab.cuh, which
+// K1's box gate shares): per axis t0/t1 = (lo/hi - o) / dir, t_near =
+// max_k min(t0, t1), t_far = min_k max(t0, t1), tn0 = max(t_near, 0),
+// keep = t_far >= tn0 and t_near <= cap and cap > 0 with cap = min(t_max,
+// budget).
 //
 //  * K3 rr_coarse_words: one flag per (ray tile, supergroup of 32 chunks) —
 //    does any lane of the tile keep the supergroup's AABB? — packed into
@@ -79,6 +80,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "slab.cuh"
+
 // K3's supergroups staged in shared memory at a time (48 KB of float4 lo
 // and hi: no opt-in to a larger block)
 #define RR_COARSE_SLICE 1536
@@ -88,38 +91,6 @@
 #define RR_FLAT_GROUP 8
 
 namespace {
-
-struct Ray {
-  float o[3], idv[3], cap;
-};
-
-__device__ __forceinline__ Ray load_ray(const float* o, const float* idv,
-                                        const float* bud, long long r,
-                                        float t_max) {
-  Ray ray;
-  for (int k = 0; k < 3; ++k) {
-    ray.o[k] = o[3 * r + k];
-    ray.idv[k] = idv[3 * r + k];
-  }
-  ray.cap = fminf(t_max, bud[r]);
-  return ray;
-}
-
-// the reference's _slab_keep for one (ray, box); returns keep, sets tn0
-__device__ __forceinline__ bool slab_keep(const float* lo, const float* hi,
-                                          const Ray& ray, float* tn0) {
-  float t_near = 0.f, t_far = 0.f;
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    const float t0 = __fmul_rn(__fsub_rn(lo[k], ray.o[k]), ray.idv[k]);
-    const float t1 = __fmul_rn(__fsub_rn(hi[k], ray.o[k]), ray.idv[k]);
-    const float tn = fminf(t0, t1), tf = fmaxf(t0, t1);
-    t_near = k == 0 ? tn : fmaxf(t_near, tn);
-    t_far = k == 0 ? tf : fminf(t_far, tf);
-  }
-  *tn0 = t_near > 0.f ? t_near : 0.f;
-  return (t_far >= *tn0) && (t_near <= ray.cap) && (ray.cap > 0.f);
-}
 
 // K3: 128 threads a CTA, one lane each, n_lanes / 128 CTAs (rounded up);
 // dynamic shared memory: a slice of up to RR_COARSE_SLICE supergroups,

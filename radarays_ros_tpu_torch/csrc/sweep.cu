@@ -1,11 +1,12 @@
-// Ranked chunk sweep with early termination and winner fetch (kernel K1).
+// Ranked chunk sweep with early termination, a per-lane box gate and winner
+// fetch (kernel K1).
 //
 // Replaces radarays_ros_tpu/trace/pallas_trace.py:_trace_kernel_v3 (the
 // Pallas TPU kernel launched at :879-920). The lanes of a ray block walk
 // the block's ranked supergroups front to back (order/entry from the
 // culling prep, trace/cuda_trace.py), intersect every triangle of a
-// visited chunk, keep each lane's nearest t and winner, and then fetch the
-// winner's 16-float record by its global index.
+// visited chunk that the gate keeps, keep each lane's nearest t and
+// winner, and then fetch the winner's 16-float record by its global index.
 //
 // What bounds it on the card: f32 operations. One (ray, triangle) test is
 // ~56 multiplies and adds (the plane distance, the three edge numerators
@@ -51,12 +52,34 @@
 //     passes (the hit needs both), not for every (ray, triangle) pair; the
 //     inside tests of two rows run branch-free first, so their chains
 //     interleave, then the divisions in row order.
-//  4. Staging overlaps compute: each stage (one chunk's tc x 22 f32
+//  4. The box gate: a block's ranked list is the union of its 2,048
+//     lanes' chunks (a wedge of ~41 beams), while a warp holds 32 / P
+//     samples of one beam. A lane needs stage s (chunk c = its supergroup's
+//     sub-chunk) when its own slab test keeps c's box (slab.cuh, the
+//     prep's test on the scene's chunk boxes, with the lane's 1/d and cap
+//     = min(t_max, budget)) with an entry tn0 <= its best_t: its nearest
+//     hit within budget lies in a chunk it keeps, entered before that hit,
+//     and a chunk entered beyond best_t cannot hold a nearer one. A warp
+//     tests the stage only if one of its lanes needs it (__any_sync, on
+//     the current best_t), else skips the tests and the wait on its copy.
+//     The gate changes which stages a warp tests, not how far it walks
+//     (note 2); results move only on lanes with no hit within budget. The
+//     prep's t_last is left out of the gate: at group 1 keep already
+//     implies tn0 <= t_last, and at group > 1 t_last is a supergroup's
+//     entry, which a sub-chunk's own entry may pass.
+//  5. Staging overlaps compute: each stage (one chunk's tc x 22 f32
 //     coefficients, contiguous, 16-byte aligned for even tc) arrives by a
 //     TMA 1-D bulk copy (cp.async.bulk) into one of two shared buffers,
-//     completing on an mbarrier; the next stage is in flight while the
-//     current one is tested. Every copy that was started is awaited before
-//     the CTA exits, early termination included.
+//     completing on an mbarrier; the next copy is in flight while the
+//     current stage is tested. A stage that no warp of the CTA needs is
+//     not copied: the CTA decides stage s + 1 at the barrier that ends
+//     stage s - 1 (an OR of the warps' votes, each on its lanes' best_t
+//     then, which only falls, so the vote keeps every stage a warp can
+//     need later), and thread 0 issues the copy at the start of stage s.
+//     Copies, buffers and barrier phases count the copies issued, not the
+//     stages. Thread 0 waits for a buffer's previous copy before reusing
+//     it, and for every copy it started before the CTA exits, early
+//     termination included.
 //  Kept: rows are tested in order and a lane updates only on a strict `<`
 //  (the reference's tie-break: earliest visited chunk, then lowest row);
 //  every product and sum is rounded separately (__fmul_rn/__fadd_rn and the
@@ -69,11 +92,15 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "slab.cuh"
+
 namespace {
 
 constexpr int kCoef = 22;     // floats per triangle: n, c, A_0..2, B_0..2
 constexpr int kFetch = 16;    // floats per winner record
 constexpr int kLanes = 128;    // lanes (threads) per CTA
+constexpr int kWarps = kLanes / 32;
+static_assert(kWarps == 4, "cta_vote reads the warps' votes as one int4");
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -241,6 +268,58 @@ __device__ __forceinline__ bool group_continues(const Lane& r, float e_next) {
   return !(e_next > worst);
 }
 
+// the box of stage s: chunk ord[s / group] * group + s % group (the first
+// box past the last stage, which no lane needs)
+struct Box {
+  float lo[3], hi[3];
+};
+
+__device__ __forceinline__ Box stage_box(const float* __restrict__ lo,
+                                         const float* __restrict__ hi,
+                                         const int* ord, int group, int s,
+                                         int n_stages) {
+  const long long c =
+      s < n_stages ? (long long)ord[s / group] * group + s % group : 0;
+  Box bx;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    bx.lo[k] = __ldg(lo + 3 * c + k);
+    bx.hi[k] = __ldg(hi + 3 * c + k);
+  }
+  return bx;
+}
+
+// a lane's gate for one stage: its slab test of the stage's box
+struct Gate {
+  bool keep;
+  float tn0;
+};
+
+__device__ __forceinline__ Gate gate_of(const Box& bx, const Ray& ray,
+                                        bool real) {
+  Gate gt;
+  gt.keep = slab_keep(bx.lo, bx.hi, ray, &gt.tn0) && real;
+  return gt;
+}
+
+// does a lane of the warp need the stage at its current best t?
+// (warp-uniform)
+__device__ __forceinline__ bool warp_needs(const Gate& gt, const Lane& ln) {
+  return __any_sync(0xffffffffu, gt.keep && gt.tn0 <= ln.bt);
+}
+
+// the OR of the CTA's warp-uniform `bits`, one barrier: each warp writes
+// its vote into slot `slot`, which alternates, so a slot is written again
+// only after the next barrier, when every thread has read it
+__device__ __forceinline__ int cta_vote(int (*votes)[kWarps], int& slot,
+                                        int bits) {
+  if ((threadIdx.x & 31) == 0) votes[slot][threadIdx.x >> 5] = bits;
+  __syncthreads();
+  const int4 v = *reinterpret_cast<const int4*>(votes[slot]);
+  slot ^= 1;
+  return v.x | v.y | v.z | v.w;
+}
+
 // P threads per lane (P row slices); the warp is the lane group
 template <int P>
 __global__ void __launch_bounds__(kLanes)
@@ -249,10 +328,13 @@ sweep_kernel(const int* __restrict__ nvisit, const int* __restrict__ order,
              const float* __restrict__ orig, const float* __restrict__ dir,
              const float* __restrict__ t_last,
              const float* __restrict__ coef, const float* __restrict__ fetch,
-             int tc, int group, int ctas_per_block, float t_min, float eps,
-             float* __restrict__ best_t_out, int* __restrict__ best_idx_out,
-             float* __restrict__ rows_out) {
+             const float* __restrict__ idv, const float* __restrict__ bud,
+             const float* __restrict__ lo, const float* __restrict__ hi,
+             int tc, int group, int ctas_per_block, float t_min, float t_max,
+             float eps, float* __restrict__ best_t_out,
+             int* __restrict__ best_idx_out, float* __restrict__ rows_out) {
   extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ __align__(16) int votes[2][kWarps];
   const int stage_floats = tc * kCoef;
   float* buf = reinterpret_cast<float*>(smem);          // 2 stages
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + 2 * stage_floats * 4);
@@ -270,6 +352,7 @@ sweep_kernel(const int* __restrict__ nvisit, const int* __restrict__ order,
   ln.bt = CUDART_INF_F;
   ln.bi = -1;
   ln.tl = t_last[r];
+  const Ray ray = load_ray(orig, idv, bud, r, t_max);
 
   const int n = nvisit[b];
   const int* ord = order + (long long)b * ce;
@@ -281,54 +364,73 @@ sweep_kernel(const int* __restrict__ nvisit, const int* __restrict__ order,
     mbar_init(&full[1]);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // a group starts only if its lanes can reach the first ranked entry
+  // a group starts only if its lanes can reach the first ranked entry;
+  // the CTA copies stages 0 and 1 if a starting warp needs them (this
+  // vote also publishes the barriers)
   bool act = n > 0 && group_continues(ln, ent[0]);
-  int go = __syncthreads_or(act);   // also publishes the barriers
+  Gate cur = gate_of(stage_box(lo, hi, ord, group, 0, n_stages), ray, n > 0);
+  Gate nxt = gate_of(stage_box(lo, hi, ord, group, 1, n_stages), ray,
+                     1 < n_stages);
+  int slot = 0;
+  int vote = cta_vote(votes, slot,
+                      (act ? 1 : 0) | (act && warp_needs(cur, ln) ? 2 : 0) |
+                          (act && warp_needs(nxt, ln) ? 4 : 0));
+  bool go = vote & 1, copy_cur = vote & 2, copy_nxt = vote & 4;
 
-  // thread 0 issues the copies: stage s = (rank s / group, sub-chunk
-  // s % group) into buffer s & 1, the u-th use of which completes phase u
+  // thread 0 issues the copies: the j-th copy goes to buffer j & 1 and
+  // completes phase j >> 1 of its barrier; it first waits for the
+  // buffer's copy j - 2, whose stage every thread finished before the
+  // barrier that ended it
   int issued = 0;
   auto issue = [&](int s) {
-    const int c = ord[s / group];
-    const long long tri0 = ((long long)c * group + s % group) * tc;
-    uint64_t* bar = &full[s & 1];
-    mbar_expect_tx(bar, stage_bytes);
-    bulk_load(buf + (s & 1) * stage_floats, coef + tri0 * kCoef, stage_bytes,
-              bar);
-    issued = s + 1;
-  };
-  if (go && tid == 0) issue(0);
-
-  int done_stages = 0;
-  for (int k = 0; k < n && go; ++k) {
-    for (int g = 0; g < group; ++g) {
-      const int s = k * group + g;
-      // the other buffer was last read in stage s - 1, which every thread
-      // finished before the barrier that ended it
-      if (tid == 0 && s + 1 < n_stages) {
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        issue(s + 1);
-      }
-      if (act) {
-        mbar_wait(&full[s & 1], (uint32_t)((s >> 1) & 1));
-        if constexpr (P == 1)
-          test_chunk(buf + (s & 1) * stage_floats, tc, ln,
-                     (ord[k] * group + g) * tc, t_min, eps);
-        else
-          test_chunk_split<P>(buf + (s & 1) * stage_floats, tc, ln,
-                              (ord[k] * group + g) * tc, t_min, eps, tid % P);
-      }
-      done_stages = s + 1;
-      if (g + 1 < group) __syncthreads();
+    const int j = issued++;
+    uint64_t* bar = &full[j & 1];
+    if (j >= 2) {
+      mbar_wait(bar, (uint32_t)(((j - 2) >> 1) & 1));
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     }
-    if (act) act = k + 1 < n && group_continues(ln, ent[k + 1]);
-    go = __syncthreads_or(act);
+    const long long tri0 =
+        ((long long)ord[s / group] * group + s % group) * tc;
+    mbar_expect_tx(bar, stage_bytes);
+    bulk_load(buf + (j & 1) * stage_floats, coef + tri0 * kCoef, stage_bytes,
+              bar);
+  };
+  if (go && copy_cur && tid == 0) issue(0);
+
+  int consumed = 0;      // copies of the stages passed (the same everywhere)
+  for (int s = 0; go && s < n_stages; ++s) {
+    const int k = s / group, g = s - k * group;
+    if (tid == 0 && copy_nxt) issue(s + 1);
+    // the box two stages ahead, loaded while this stage is tested
+    const Box ahead = stage_box(lo, hi, ord, group, s + 2, n_stages);
+    if (copy_cur) {
+      const int j = consumed++;
+      if (act && warp_needs(cur, ln)) {
+        mbar_wait(&full[j & 1], (uint32_t)((j >> 1) & 1));
+        const float* sc = buf + (j & 1) * stage_floats;
+        const int tri0 = (ord[k] * group + g) * tc;
+        if constexpr (P == 1)
+          test_chunk(sc, tc, ln, tri0, t_min, eps);
+        else
+          test_chunk_split<P>(sc, tc, ln, tri0, t_min, eps, tid % P);
+      }
+    }
+    if (act && g + 1 == group)
+      act = k + 1 < n && group_continues(ln, ent[k + 1]);
+    cur = nxt;
+    nxt = gate_of(ahead, ray, s + 2 < n_stages);
+    vote = cta_vote(votes, slot,
+                    (act ? 1 : 0) | (act && warp_needs(nxt, ln) ? 2 : 0));
+    go = vote & 1;
+    copy_cur = copy_nxt;
+    copy_nxt = vote & 2;
   }
-  // drain: a copy started for a stage that was never consumed must land
-  // before the CTA's shared memory is released
+  // drain: each barrier's last copy must land before the CTA's shared
+  // memory is released (every earlier one was waited for before its
+  // buffer was reused)
   if (tid == 0)
-    for (int s = done_stages; s < issued; ++s)
-      mbar_wait(&full[s & 1], (uint32_t)((s >> 1) & 1));
+    for (int j = issued < 2 ? 0 : issued - 2; j < issued; ++j)
+      mbar_wait(&full[j & 1], (uint32_t)((j >> 1) & 1));
 
   const bool live = ln.bt < CUDART_INF_F;
   if constexpr (P == 1) {
@@ -389,16 +491,20 @@ cudaError_t stage_smem(Kernel k, int tc, size_t* smem) {
 
 // nvisit (B,) i32; order (B, ce) i32 ranked supergroups; entry (B, ce) f32
 // ranked entries with +inf after the last; o, d (B*RB, 3); t_last (B*RB,);
-// coef (T, 22) with a 16-byte aligned base; fetch (T, 16). tc even, RB a
-// multiple of 128, split (P, row slices a lane) 1, 2, 4 or 8. Outputs
-// best_t (B*RB,), best_idx (B*RB,) (-1 on miss), rows (B*RB, 16) (zeros on
-// miss). A block's lanes go to RB * P / 128 CTAs.
+// coef (T, 22) with a 16-byte aligned base; fetch (T, 16); the gate's
+// inputs: idv (B*RB, 3) the lanes' 1/d and bud (B*RB,) their budgets (the
+// prep's), lo, hi (T / tc, 3) the chunk boxes. tc even, RB a multiple of
+// 128, split (P, row slices a lane) 1, 2, 4 or 8. Outputs best_t (B*RB,),
+// best_idx (B*RB,) (-1 on miss), rows (B*RB, 16) (zeros on miss). A
+// block's lanes go to RB * P / 128 CTAs.
 extern "C" int rr_sweep(const int* nvisit, const int* order,
                         const float* entry, int ce, const float* o,
                         const float* d, const float* t_last, const float* coef,
-                        const float* fetch, int n_blocks, int ray_block,
-                        int tc, int group, float t_min, float eps,
-                        float* best_t, int* best_idx, float* rows, int split,
+                        const float* fetch, const float* idv,
+                        const float* bud, const float* lo, const float* hi,
+                        int n_blocks, int ray_block, int tc, int group,
+                        float t_min, float t_max, float eps, float* best_t,
+                        int* best_idx, float* rows, int split,
                         cudaStream_t stream) {
   const Kernel kernel = kernel_for(split);
   if (ray_block % 128 != 0 || tc < 2 || tc % 2 != 0 || group < 1 ||
@@ -410,8 +516,8 @@ extern "C" int rr_sweep(const int* nvisit, const int* order,
   const cudaError_t e = stage_smem(kernel, tc, &smem);
   if (e != cudaSuccess) return (int)e;
   kernel<<<n_blocks * ctas_per_block, kLanes, smem, stream>>>(
-      nvisit, order, entry, ce, o, d, t_last, coef, fetch, tc, group,
-      ctas_per_block, t_min, eps, best_t, best_idx, rows);
+      nvisit, order, entry, ce, o, d, t_last, coef, fetch, idv, bud, lo, hi,
+      tc, group, ctas_per_block, t_min, t_max, eps, best_t, best_idx, rows);
   return (int)cudaGetLastError();
 }
 

@@ -27,6 +27,7 @@ from typing import NamedTuple
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("sweep.cu", "prep.cu", "bin.cu", "lookup.cu")
+_HEADERS = ("slab.cuh",)    # included by the sources: part of the hash
 _BUILD_DIR = _CSRC.parent.parent / "build" / "radarays_torch_kernels"
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
           "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
@@ -36,8 +37,8 @@ _LL = ctypes.c_longlong
 _PI = ctypes.POINTER(ctypes.c_int)
 # C entry points: name -> argtypes (every entry returns a cudaError_t)
 _SIGNATURES = {
-    "rr_sweep": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
-                 _P, _P, _P, _I, _P],
+    "rr_sweep": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                 _I, _I, _I, _F, _F, _F, _P, _P, _P, _I, _P],
     "rr_sweep_occupancy": [_I, _I, _PI],
     "rr_coarse_words": [_P, _P, _I, _P, _P, _P, _I, _I, _F, _P, _P],
     "rr_prep_hier": [_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _F, _P, _P,
@@ -70,7 +71,7 @@ def build() -> Build:
     """Compile (if needed) and load the kernel library; cached per process."""
     srcs = [_CSRC / s for s in _SOURCES]
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for s in srcs:
+    for s in (*srcs, *(_CSRC / x for x in _HEADERS)):
         h.update(s.read_bytes())
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     path = _BUILD_DIR / f"libradarays_torch_kernels-{h.hexdigest()[:16]}.so"

@@ -14,9 +14,10 @@ Per block of `ray_block` rays:
   2. rank the block's chunks by entry (stable sort); nvisit = the number of
      finite entries.
   3. sweep (K1, `sweep`) — visit chunks front to back, keep each lane's
-     nearest hit; each aligned group of 32 lanes stops once the next entry
-     exceeds max over its lanes of min(best_t, t_last); fetch the winner
-     records.
+     nearest hit; each aligned group of 32 lanes tests a chunk only if one
+     of its lanes keeps the chunk's box entered within its best_t so far,
+     and stops once the next entry exceeds max over its lanes of
+     min(best_t, t_last); fetch the winner records.
   4. the winner's distance is refined by Moller-Trumbore (trace/planes.py).
 
 Gradients: the winner search is discrete, so steps 1-3 run on detached
@@ -322,9 +323,9 @@ def _chunk_t(o, d, w, cf, t_min: float):
     return torch.where(hit, t, torch.inf)
 
 
-def _sweep_plain(nvisit, order, entry, o, d, t_last, coef, fetch, *,
-                 tc: int, group: int, t_min: float, with_visits: bool = False,
-                 lanes: int = 32):
+def _sweep_plain(nvisit, order, entry, o, d, t_last, coef, fetch, inv_d,
+                 bud, lo, hi, *, tc: int, group: int, t_min: float,
+                 t_max: float, with_visits: bool = False, lanes: int = 32):
     """Plain K1: every aligned group of `lanes` consecutive lanes of a ray
     block walks its block's ranked list on its own; all groups advance in
     lock-step over visit rank, as (groups, lanes, tc) tensors per step,
@@ -339,13 +340,21 @@ def _sweep_plain(nvisit, order, entry, o, d, t_last, coef, fetch, *,
     lanes with no hit within their budget, which the trace counts as
     misses.
 
+    The box gate (sweep.cu, design note 4): of each visited supergroup, a
+    group tests sub-chunk c only if one of its lanes needs it: the lane's
+    own slab test (_slab_keep, as the prep: 1/d `inv_d`, cap =
+    min(t_max, bud)) keeps c's box `lo`/`hi` (chunk boxes, (C, 3)) with an
+    entry tn0 <= the lane's best_t so far. A lane's nearest hit within
+    budget lies in a chunk it keeps, entered before that hit, so the gate
+    too moves only the results of lanes with no hit within budget.
+
     o x d (`_cross`) is rounded per product and difference, as sweep.cu.
 
     nvisit (B,) i32; order/entry (B, ce) ranked supergroups and entries
-    (+inf after the last); o, d (B*RB, 3); t_last (B*RB,). Returns best_t
-    (B*RB,), best_idx (B*RB,) i32 (-1 on miss) and rows (B*RB, 16); with
-    `with_visits` also the supergroups visited per group (B, RB/lanes)
-    i32."""
+    (+inf after the last); o, d, inv_d (B*RB, 3); t_last, bud (B*RB,).
+    Returns best_t (B*RB,), best_idx (B*RB,) i32 (-1 on miss) and rows
+    (B*RB, 16); with `with_visits` also the supergroups visited and the
+    stages (chunks) tested per group, each (B, RB/lanes) i32."""
     B = nvisit.shape[0]
     L = lanes
     G = o.shape[0] // (B * L)                   # groups per block
@@ -353,13 +362,17 @@ def _sweep_plain(nvisit, order, entry, o, d, t_last, coef, fetch, *,
     ob = o.view(B, G, L, 1, 3)
     db = d.view(B, G, L, 1, 3)
     wb = _cross(o, d).view(B, G, L, 1, 3)
+    ib = inv_d.view(B, G, L, 3)
+    cap = torch.clamp_max(bud, t_max).view(B, G, L)
     tl = t_last.view(B, G, L)
     best_t = torch.full((B, G, L), torch.inf, device=dev)
     best_i = torch.zeros((B, G, L), dtype=torch.int64, device=dev)
     coef_g = coef.view(-1, group, tc, coef.shape[1])
+    lo_g, hi_g = lo.view(-1, group, 3), hi.view(-1, group, 3)
     rows_ix = torch.arange(tc, device=dev)
     active = (nvisit > 0)[:, None] & ~(entry[:, :1] > tl.amax(dim=2))
     visits = torch.zeros((B, G), dtype=torch.int32, device=dev)
+    tested = torch.zeros((B, G), dtype=torch.int32, device=dev)
     k = 0
     while bool(active.any()):
         ab, gb = torch.nonzero(active, as_tuple=True)
@@ -367,15 +380,24 @@ def _sweep_plain(nvisit, order, entry, o, d, t_last, coef, fetch, *,
         bt = best_t[ab, gb]
         bi = best_i[ab, gb]
         for g in range(group):
-            tm = _chunk_t(ob[ab, gb], db[ab, gb], wb[ab, gb],
-                          coef_g[c, g][:, None], t_min)       # (n, L, tc)
+            keep, tn0 = _slab_keep(lo_g[c, g][:, None], hi_g[c, g][:, None],
+                                   ob[ab, gb, :, 0], ib[ab, gb], cap[ab, gb])
+            need = (keep & (tn0 <= bt)).any(dim=1)              # (n,)
+            tested[ab, gb] += need.to(torch.int32)
+            nb = torch.nonzero(need)[:, 0]
+            if nb.numel() == 0:
+                continue
+            a2, g2 = ab[nb], gb[nb]
+            tm = _chunk_t(ob[a2, g2], db[a2, g2], wb[a2, g2],
+                          coef_g[c[nb], g][:, None], t_min)    # (m, L, tc)
             local_t = tm.amin(dim=-1)
             local_i = torch.where(tm == local_t[..., None], rows_ix,
                                   tc).amin(dim=-1)
-            better = local_t < bt
-            bt = torch.where(better, local_t, bt)
-            bi = torch.where(better, (c[:, None] * group + g) * tc + local_i,
-                             bi)
+            better = local_t < bt[nb]
+            bt[nb] = torch.where(better, local_t, bt[nb])
+            bi[nb] = torch.where(better,
+                                 (c[nb, None] * group + g) * tc + local_i,
+                                 bi[nb])
         best_t[ab, gb] = bt
         best_i[ab, gb] = bi
         visits[ab, gb] += 1
@@ -388,7 +410,7 @@ def _sweep_plain(nvisit, order, entry, o, d, t_last, coef, fetch, *,
     best_i = torch.where(live, best_i.view(-1), -1)
     rows = torch.where(live[:, None], fetch[best_i.clamp_min(0)], 0.0)
     if with_visits:
-        return best_t, best_i.to(torch.int32), rows, visits
+        return best_t, best_i.to(torch.int32), rows, visits, tested
     return best_t, best_i.to(torch.int32), rows
 
 
@@ -436,8 +458,9 @@ def sweep_resident(index, tc: int) -> int:
         index or 0).multi_processor_count
 
 
-def sweep(nvisit, order, entry, o, d, t_last, coef, fetch, *, tc: int,
-          group: int, t_min: float, _split=None):
+def sweep(nvisit, order, entry, o, d, t_last, coef, fetch, inv_d, bud, lo,
+          hi, *, tc: int, group: int, t_min: float, t_max: float,
+          _split=None):
     """K1 wrapper: plain version on CPU tensors, the CUDA kernel rr_sweep
     on CUDA tensors. Same arguments and results as _sweep_plain, at
     lanes = 32 // P on the card.
@@ -450,21 +473,25 @@ def sweep(nvisit, order, entry, o, d, t_last, coef, fetch, *, tc: int,
     launched)."""
     if o.device.type == "cpu":
         return _sweep_plain(nvisit, order, entry, o, d, t_last, coef, fetch,
-                            tc=tc, group=group, t_min=t_min)
+                            inv_d, bud, lo, hi, tc=tc, group=group,
+                            t_min=t_min, t_max=t_max)
     from radarays_ros_tpu_torch import cuda_build
 
     cuda_build.check_tensors("sweep", nvisit, order,
                              dtypes=(torch.int32,) * 2)
     cuda_build.check_tensors("sweep", entry, o, d, t_last, coef, fetch,
-                             dtypes=(torch.float32,) * 6)
+                             inv_d, bud, lo, hi,
+                             dtypes=(torch.float32,) * 10)
     B, ce = order.shape
     Rp = o.shape[0]
     if Rp % B or (Rp // B) % 128 or entry.shape != (B, ce) \
             or coef.shape[1] != 22 or fetch.shape[1] != 16 \
-            or coef.shape[0] % (tc * group) or tc % 2:
+            or coef.shape[0] % (tc * group) or tc % 2 \
+            or inv_d.shape != o.shape or bud.shape != (Rp,) \
+            or lo.shape != (coef.shape[0] // tc, 3) or hi.shape != lo.shape:
         raise ValueError("sweep: inconsistent shapes (the kernel takes ray "
-                         "blocks of a multiple of 128 and an even chunk "
-                         "size)")
+                         "blocks of a multiple of 128, an even chunk size "
+                         "and a box per chunk)")
     if coef.data_ptr() % 16:
         raise ValueError("sweep: coef must be 16-byte aligned (its chunks "
                          "are staged by TMA bulk copies)")
@@ -485,9 +512,10 @@ def sweep(nvisit, order, entry, o, d, t_last, coef, fetch, *, tc: int,
     cuda_build.check(lib.rr_sweep(
         nvisit.data_ptr(), order.data_ptr(), entry.data_ptr(), ce,
         o.data_ptr(), d.data_ptr(), t_last.data_ptr(), coef.data_ptr(),
-        fetch.data_ptr(), B, Rp // B, tc, group, float(t_min), _INSIDE_EPS,
-        best_t.data_ptr(), best_i.data_ptr(), rows.data_ptr(), split,
-        cuda_build.stream_ptr(o)), "rr_sweep")
+        fetch.data_ptr(), inv_d.data_ptr(), bud.data_ptr(), lo.data_ptr(),
+        hi.data_ptr(), B, Rp // B, tc, group, float(t_min), float(t_max),
+        _INSIDE_EPS, best_t.data_ptr(), best_i.data_ptr(), rows.data_ptr(),
+        split, cuda_build.stream_ptr(o)), "rr_sweep")
     sweep.launches += 1
     sweep.split_launches += split > 1
     sweep.last_split = split
@@ -566,7 +594,8 @@ def sweep_winners(scene, origs, dirs, budget, *, t_min: float, t_max: float,
     run = sweep if kernels else _sweep_plain
     best_t, best_i, rows = run(
         nvisit, order, entry_ranked, o, d, t_last, scene.coef, scene.fetch,
-        tc=scene.chunk_size, group=group, t_min=t_min)
+        inv_d, bud, scene.chunk_lo, scene.chunk_hi, tc=scene.chunk_size,
+        group=group, t_min=t_min, t_max=t_max)
     # the sweep keeps no t_max test per element: if the nearest hit is
     # beyond t_max every hit is, so masking the winner once is exact
     bt = best_t[:R]

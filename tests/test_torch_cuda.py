@@ -63,9 +63,9 @@ def _fan(n, dev, seed=0, n_az=64):
 def _kernels_equal_plain(scene, o, d, bud, rb, group, split=None):
     """The culling prep (K3 and K2, or K4 under 256 supergroups, as the
     trace's _run_prep picks) and K1 against their plain versions bit for
-    bit on one ray set, K1 at `split` row slices a lane (None: the
-    wrapper's rule) against the plain version at its group width;
-    returns the plain sweep's visits per group and best_t."""
+    bit on one ray set, K1 (box gate included) at `split` row slices a
+    lane (None: the wrapper's rule) against the plain version at its group
+    width; returns the plain sweep's visits per group and best_t."""
     o, d, inv_d, bud, lo, hi, C2 = CT._prep_inputs(scene, o, d, bud,
                                                     ray_block=rb, group=group)
     n0 = CT.sweep.launches
@@ -75,18 +75,19 @@ def _kernels_equal_plain(scene, o, d, bud, rb, group, split=None):
                             kernels=False)
     assert torch.equal(e_k, e_p) and torch.equal(t_k, t_p)
     nvisit, order, entry = CT._rank(e_k[:, :C2])
-    args = (nvisit, order, entry, o, d, t_k, scene.coef, scene.fetch)
-    kw = dict(tc=scene.chunk_size, group=group, t_min=0.0)
+    args = (nvisit, order, entry, o, d, t_k, scene.coef, scene.fetch, inv_d,
+            bud, scene.chunk_lo, scene.chunk_hi)
+    kw = dict(tc=scene.chunk_size, group=group, t_min=0.0, t_max=1000.0)
     got = CT.sweep(*args, **kw, _split=split)
     P = CT.sweep.last_split
     assert split in (None, P)
-    bt_p, bi_p, rows_p, visits = CT._sweep_plain(*args, **kw,
-                                                 with_visits=True,
-                                                 lanes=32 // P)
+    bt_p, bi_p, rows_p, visits, tested = CT._sweep_plain(
+        *args, **kw, with_visits=True, lanes=32 // P)
     torch.cuda.synchronize()
     assert CT.sweep.launches == n0 + 1
     for x, y in zip(got, (bt_p, bi_p, rows_p)):
         assert torch.equal(x, y)
+    assert (tested <= visits * group).all()
     return visits, bt_p
 
 
@@ -163,7 +164,7 @@ def test_sweep_row_slices_equal_plain(scene, dev, split, case):
     assert torch.isfinite(bt).float().mean() > 0.2
     if case == "ties":
         tri = CT.sweep(*_sweep_args(st, o, d, bud), tc=st.chunk_size,
-                       group=1, t_min=0.0, _split=split)[1]
+                       group=1, t_min=0.0, t_max=1000.0, _split=split)[1]
         hit = tri[tri >= 0]
         assert hit.numel() > 1000 and bool((hit % 4 < 2).all())
 
@@ -176,7 +177,8 @@ def _sweep_args(st, o, d, bud, rb=2048, group=1):
     e, t = CT._run_prep(lo, hi, o, inv_d, bud, t_max=1000.0, RB=rb,
                         kernels=True)
     nvisit, order, entry = CT._rank(e[:, :C2])
-    return nvisit, order, entry, o, d, t, st.coef, st.fetch
+    return (nvisit, order, entry, o, d, t, st.coef, st.fetch, inv_d, bud,
+            st.chunk_lo, st.chunk_hi)
 
 
 def test_sweep_split_rule_on_card(scene, dev):
@@ -186,7 +188,7 @@ def test_sweep_split_rule_on_card(scene, dev):
     resident = CT.sweep_resident(dev.index, scene.chunk_size)
     assert resident >= torch.cuda.get_device_properties(
         0).multi_processor_count
-    kw = dict(tc=scene.chunk_size, group=1, t_min=0.0)
+    kw = dict(tc=scene.chunk_size, group=1, t_min=0.0, t_max=1000.0)
     for n in (400 * 50, resident * 128):
         o, d, bud = _fan(n, dev, seed=2, n_az=400 if n == 20000 else 64)
         args = _sweep_args(scene, o, d, bud)
@@ -233,6 +235,61 @@ def test_kernels_equal_plain_on_second_bounce(scene, dev):
 
     _kernels_equal_plain(scene, rm(waves.orig), rm(waves.dir),
                          rm(P.trace_budget(cfg, waves)), 2048, 1)
+
+
+@pytest.fixture(scope="module")
+def loop_frame(dev):
+    """One frame on the benchmark's loop: portbench's kaist02-1m scene
+    (996,002 triangles, 3,896 chunks), its first pose and live1's held
+    cone draws; the rays and budgets of each bounce (400 x 50 rays, 10
+    blocks of 2,048), in the trace's ray-major order."""
+    import json
+    from pathlib import Path
+
+    from portbench import system as S
+    from portbench.generator import cone_draws
+    from portbench.scene import loop_pose
+    from radarays_ros_tpu_torch.sim import pipeline as P
+
+    root = Path(__file__).resolve().parents[1] / "portbench"
+    conf = json.loads((root / "configs" / "kaist02-1m.json").read_text())
+    held = json.loads((root / "traffic" / "live1.json").read_text())[
+        "held_cone_seed"]
+    system = S.build(conf, dev)
+    cfg = system.cfg
+    params = S.port_params(S.material_table(conf["materials"], dev),
+                           system.object_materials, conf["beam_width_deg"])
+    tr = conf["trajectory"]
+    pose = torch.from_numpy(loop_pose(np.radians([tr["phase_deg"]]),
+                                      tr["radius"], tr["height"]))
+    waves, sensor_pos = P.start_waves(
+        params, cfg, pose, device=dev,
+        cone_draws=cone_draws(torch.Generator(dev).manual_seed(held), 1, cfg))
+
+    def rm(x):
+        return x.movedim(0, 2).reshape(-1, *x.shape[3:]).contiguous()
+
+    bounces = []
+    for pass_id in range(cfg.n_reflections):
+        bounces.append((rm(waves.orig), rm(waves.dir),
+                        rm(P.trace_budget(cfg, waves))))
+        with torch.no_grad():
+            waves, _ = P._bounce(cfg, params, system.scene, waves,
+                                 sensor_pos, pass_id)
+    return system.scene, cfg.trace_ray_block, bounces
+
+
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("split", [1, 4])
+def test_sweep_equals_plain_on_the_loops_frame(loop_frame, split, group):
+    """K1 with its box gate bit for bit against the plain version on each
+    bounce of one frame on the benchmark's loop, at one thread a lane and
+    at the 4 row slices the wrapper picks there, at prep group 1 (the
+    scene's own) and 4 (each sub-chunk gated by its own box)."""
+    st, rb, bounces = loop_frame
+    for o, d, bud in bounces:
+        _, bt = _kernels_equal_plain(st, o, d, bud, rb, group, split=split)
+        assert torch.isfinite(bt).any()
 
 
 def test_kernel_engine_matches_brute(scene, dev):
@@ -988,10 +1045,12 @@ def test_sweep_refuses_a_chunk_size_past_shared_memory(scene, dev):
     nvisit, order, entry = CT._rank(e[:, :C2])
     coef = torch.zeros(tc * 8, 22, device=dev)
     fetch = torch.zeros(tc * 8, 16, device=dev)
+    box = torch.zeros(8, 3, device=dev)
     n0 = CT.sweep.launches
     with pytest.raises(CT.ChunkSizeRefused, match="shared memory"):
         CT.sweep(nvisit, order.clamp_max(7), entry, o, d, t_last, coef,
-                 fetch, tc=tc, group=1, t_min=0.0)
+                 fetch, inv_d, bud, box, box, tc=tc, group=1, t_min=0.0,
+                 t_max=1000.0)
     assert CT.sweep.launches == n0
 
 

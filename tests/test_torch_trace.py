@@ -351,8 +351,10 @@ def test_group_termination_equals_block_wide(scenes, rb, group):
                                  kernels=False)
     nvisit, order, ranked = CT._rank(entry[:, :C2])
     args = (nvisit, order, ranked, o, d, t_last, st.coef, st.fetch)
+    gate = (inv_d, bud, st.chunk_lo, st.chunk_hi)
     kw = dict(tc=st.chunk_size, group=group, t_min=0.0)
-    bt, bi, rows, visits = CT._sweep_plain(*args, **kw, with_visits=True)
+    bt, bi, rows, visits, _ = CT._sweep_plain(*args, *gate, **kw,
+                                              t_max=1000.0, with_visits=True)
     bt_w, bi_w = _sweep_block_wide(*args, **kw)
     cap = torch.clamp_max(bud, 1000.0)
     ok, ok_w = (bt <= cap) & (cap > 0), (bt_w <= cap) & (cap > 0)
@@ -385,10 +387,13 @@ def test_narrower_groups_equal_block_wide(scenes, rb, group, lanes):
                                  kernels=False)
     nvisit, order, ranked = CT._rank(entry[:, :C2])
     args = (nvisit, order, ranked, o, d, t_last, st.coef, st.fetch)
+    gate = (inv_d, bud, st.chunk_lo, st.chunk_hi)
     kw = dict(tc=st.chunk_size, group=group, t_min=0.0)
-    bt, bi, rows, visits = CT._sweep_plain(*args, **kw, with_visits=True,
-                                           lanes=lanes)
-    *_, visits32 = CT._sweep_plain(*args, **kw, with_visits=True)
+    bt, bi, rows, visits, _ = CT._sweep_plain(*args, *gate, **kw,
+                                              t_max=1000.0, with_visits=True,
+                                              lanes=lanes)
+    *_, visits32, _ = CT._sweep_plain(*args, *gate, **kw, t_max=1000.0,
+                                      with_visits=True)
     bt_w, bi_w = _sweep_block_wide(*args, **kw)
     cap = torch.clamp_max(bud, 1000.0)
     ok, ok_w = (bt <= cap) & (cap > 0), (bt_w <= cap) & (cap > 0)
@@ -401,6 +406,109 @@ def test_narrower_groups_equal_block_wide(scenes, rb, group, lanes):
     per32 = visits.view(visits.shape[0], -1, 32 // lanes)
     assert (per32 <= visits32[..., None]).all()
     assert int(visits.sum()) < int(visits32.sum()) * (32 // lanes)
+
+
+def _gated_sweep(st, o, d, bud, rb, group, lanes):
+    """The prep, the ranking and the gated plain K1 on rays o, d, bud:
+    (K1's positional arguments without the gate's, the gate's, the sweep's
+    best_t, best_idx, rows, visits and tested)."""
+    o, d, inv_d, bud, lo, hi, C2 = CT._prep_inputs(
+        st, torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(bud),
+        ray_block=rb, group=group)
+    entry, t_last = CT._run_prep(lo, hi, o, inv_d, bud, t_max=1000.0, RB=rb,
+                                 kernels=False)
+    nvisit, order, ranked = CT._rank(entry[:, :C2])
+    args = (nvisit, order, ranked, o, d, t_last, st.coef, st.fetch)
+    gate = (inv_d, bud, st.chunk_lo, st.chunk_hi)
+    out = CT._sweep_plain(*args, *gate, tc=st.chunk_size, group=group,
+                          t_min=0.0, t_max=1000.0, with_visits=True,
+                          lanes=lanes)
+    return (args, gate, *out)
+
+
+def _union_needed(st, o, inv_d, bud, bt, lanes):
+    """Per group of `lanes` lanes, the chunks one of its lanes needs at its
+    final best_t: its own slab test keeps the chunk's box with an entry
+    <= best_t (chip_smoke.py's lane_kept, united over the group)."""
+    keep, tn0 = CT._slab_keep(st.chunk_lo[None], st.chunk_hi[None],
+                              o[:, None], inv_d[:, None],
+                              torch.clamp_max(bud, 1000.0)[:, None])
+    need = keep & (tn0 <= bt[:, None])
+    return need.view(-1, lanes, need.shape[1]).any(dim=1).sum(dim=1)
+
+
+@pytest.mark.parametrize("lanes", [32, 8])
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("rb", [128, 2048])
+def test_box_gate_equals_block_wide(scenes, rb, group, lanes):
+    """The plain K1 with the box gate (a group tests a chunk only if one
+    of its lanes keeps the chunk's box entered within its best_t) gives the
+    ungated block-wide loop's winners and distances on every lane whose
+    nearest hit lies within its budget, on fans with sky rays, escaping
+    rays and budgets 0 / 4 / 25 / 1000, at every supergroup size and at
+    the warp widths of P = 1 and 4; a group tests no more stages than it
+    visits chunks, and no fewer than its lanes need."""
+    st, _ = scenes
+    o, d, bud = _fan(4096 + 37, seed=13, el_lo=-0.3, el_hi=1.2,
+                     budgets=(0.0, 4.0, 25.0, 1000.0))
+    bud[:64] = 0.0
+    args, gate, bt, bi, rows, visits, tested = _gated_sweep(
+        st, o, d, bud, rb, group, lanes)
+    bt_w, bi_w = _sweep_block_wide(*args, tc=st.chunk_size, group=group,
+                                   t_min=0.0)
+    cap = torch.clamp_max(gate[1], 1000.0)
+    ok, ok_w = (bt <= cap) & (cap > 0), (bt_w <= cap) & (cap > 0)
+    assert torch.equal(ok, ok_w)
+    assert 0.1 < float(ok.float().mean()) < 0.9
+    assert torch.equal(bt[ok], bt_w[ok]) and torch.equal(bi[ok], bi_w[ok])
+    assert torch.equal(rows[ok], st.fetch[bi[ok].long()])
+    assert (tested <= visits * group).all()
+    need = _union_needed(st, args[3], gate[0], gate[1], bt, lanes)
+    assert (tested.view(-1) >= need).all() and int(need.sum()) > 0
+    # dead lanes keep no box: their groups neither visit nor test
+    assert (tested.view(-1)[:64 // lanes] == 0).all()
+
+
+def _beams(n_beams, per_beam, seed, width_deg):
+    """n_beams beams of per_beam rays from one origin, each beam's rays
+    within width_deg of its axis and consecutive (a frame's (A, S)
+    layout), the axes spread over the full circle; budget 1000."""
+    rng = np.random.default_rng(seed)
+    w = np.radians(width_deg)
+    az = (np.repeat(np.linspace(0, 2 * np.pi, n_beams, endpoint=False),
+                    per_beam) + rng.uniform(-w, w, n_beams * per_beam) / 2)
+    el = rng.uniform(-0.1, 0.1, az.shape[0]) * w / 0.2
+    d = np.stack([np.cos(el) * np.cos(az), np.cos(el) * np.sin(az),
+                  np.sin(el)], -1).astype(np.float32)
+    o = np.broadcast_to(np.array([0, 0, 2.0], np.float32), d.shape).copy()
+    return o, d, np.full(d.shape[0], 1000.0, np.float32)
+
+
+@pytest.mark.parametrize("case,group", [("beams", 1), ("beams", 2),
+                                        ("one_ray", 1)])
+def test_box_gate_engages_by_the_rays(scenes, case, group):
+    """Where a block holds many narrow beams (a group of 32 lanes = one
+    beam of a frame), the gate tests fewer stages than the groups visit
+    chunks; where every lane of a block holds the same ray, each visited
+    chunk is kept by every lane within its best_t, and the gate skips
+    nothing: tested = visits x group. Either way no group tests fewer
+    stages than its lanes need."""
+    st, _ = scenes
+    if case == "beams":
+        o, d, bud = _beams(64, 32, seed=3, width_deg=2.0)
+    else:
+        o, d, bud = _beams(4, 1, seed=5, width_deg=0.0)
+        o, d, bud = (np.repeat(x, 512, axis=0) for x in (o, d, bud))
+    args, gate, bt, bi, rows, visits, tested = _gated_sweep(
+        st, o, d, bud, 2048 if case == "beams" else 512, group, 32)
+    assert float(torch.isfinite(bt).float().mean()) > 0.5
+    need = _union_needed(st, args[3], gate[0], gate[1], bt, 32)
+    assert (tested.view(-1) >= need).all()
+    if case == "beams":
+        assert int(tested.sum()) < 0.5 * int(visits.sum()) * group
+    else:
+        assert int(visits.sum()) > 0
+        assert torch.equal(tested, visits * group)
 
 
 @pytest.mark.parametrize("n_ctas,resident,split", [
