@@ -188,10 +188,15 @@ Phases (one line of figures each; any failure raises and exits non-zero):
      scene (9,960,002 triangles, prep group 4 by the port's rule) at a
      batch of 20 on its ring road's first poses, then one more replay
      adding its K1 launches to `sweep.grouped_launches` with `last_group`
-     4; each graph's capture seconds and pool MiB; b. frames/s eager
+     4; each graph's capture seconds and pool MiB; every compiled row's
+     `host_fetches_per_call` (page-locked u8 fetches over compiled calls,
+     1.0 on the card); b. frames/s eager
      against compiled in turns (eager, compiled, compiled, eager) at 1M,
      batches of 4 and 20, and the compiled path's launches from 0 over
-     its timed batches (each replay's recorded launches); d. phase 7's
+     its timed batches (each replay's recorded launches); f. a u8 batch
+     of 20 and of 1 at the KAIST image size fetched both ways, pageable
+     `.cpu()` of a card tensor against the compiled entry's page-locked
+     copy (pipeline._fetch_u8), median ms and GB/s; d. phase 7's
      fit through
      opti.optimize.value_and_grad (forward and backward in one graph)
      against the eager step: loss and gradient bitwise over 3 Adam steps,
@@ -3400,10 +3405,18 @@ def poses_on(n: int, dev):
 
 
 def frames_equal(a, b) -> bool:
-    """Two FrameResults bit for bit (u8, float, max_val)."""
+    """Two FrameResults bit for bit (u8, float, max_val), on the host,
+    where a compiled entry on the card returns its u8 image."""
     import torch
 
-    return all(torch.equal(x, y) for x, y in zip(a, b))
+    return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
+
+
+def host_fetches() -> int:
+    """The compiled entries' page-locked u8 fetches so far."""
+    from radarays_ros_tpu_torch.sim.pipeline import simulate_frames_jit
+
+    return simulate_frames_jit.host_fetches
 
 
 def jit_vs_eager(tag: str, st, params, cfg, n: int, poses=None) -> tuple:
@@ -3419,7 +3432,7 @@ def jit_vs_eager(tag: str, st, params, cfg, n: int, poses=None) -> tuple:
 
     dev = st.device
     poses = poses_on(n, dev) if poses is None else poses
-    c0 = P.frame_graphs.captures
+    c0, f0 = P.frame_graphs.captures, host_fetches()
     bits = []
     for seed in range(3):
         torch.cuda.synchronize()
@@ -3442,6 +3455,7 @@ def jit_vs_eager(tag: str, st, params, cfg, n: int, poses=None) -> tuple:
                engine=cfg.trace_engine, bitwise_generator=bits,
                bitwise_explicit=frames_equal(got, want),
                captures=P.frame_graphs.captures - c0,
+               host_fetches_per_call=(host_fetches() - f0) / 4,
                first_call_s=first_s,
                mean_pixel=float(got.image_u8.float().mean()), **g.info())
     log(f"[14a {tag}, batch {n}, {cfg.trace_engine}] {json.dumps(out)}")
@@ -3449,6 +3463,8 @@ def jit_vs_eager(tag: str, st, params, cfg, n: int, poses=None) -> tuple:
           f"14a {tag}: compiled frames differ from eager frames")
     check(out["captures"] == 1 and g.replays == 3,
           f"14a {tag}: {out['captures']} captures, {g.replays} replays")
+    check(out["host_fetches_per_call"] == 1.0,
+          f"14a {tag}: {out['host_fetches_per_call']} fetches a call")
     check(out["mean_pixel"] > 0, f"14a {tag}: empty frames")
     return out, g
 
@@ -3521,11 +3537,13 @@ def explicit_inputs(cfg, n: int, dev, seed: int) -> dict:
 def frames_per_s(fn, st, params, cfg, n: int) -> dict:
     """Frames/s of JIT_TIMED batches of n through fn (simulate_frames or
     simulate_frames_jit) on the generator path, by CUDA events around the
-    batches and by the host clock."""
+    batches and by the host clock, and the page-locked u8 fetches a
+    call."""
     import torch
 
     poses = poses_on(n, st.device)
     gen = torch.Generator(st.device).manual_seed(3)
+    f0 = host_fetches()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -3538,7 +3556,51 @@ def frames_per_s(fn, st, params, cfg, n: int) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return dict(frames_per_s=n * JIT_TIMED / (start.elapsed_time(end) / 1e3),
-                wall_frames_per_s=n * JIT_TIMED / wall)
+                wall_frames_per_s=n * JIT_TIMED / wall,
+                host_fetches_per_call=(host_fetches() - f0) / JIT_TIMED)
+
+
+FETCH_REPS = 30       # timings of each way of phase 14f
+
+
+def fetch_rates(dev, cfg) -> dict:
+    """Phase 14f: a u8 batch of 20 and of 1 at cfg's image size on the
+    card, fetched to the host both ways, each the median of FETCH_REPS
+    host-clock timings from a fenced start (after one untimed fetch, which
+    makes the first page-locked block): the caller's pageable `.cpu()`,
+    and the compiled entry's page-locked copy (pipeline._fetch_u8); ms and
+    GB/s."""
+    import statistics
+
+    import torch
+
+    from radarays_ros_tpu_torch.sim import pipeline as P
+
+    out = {}
+    for n in (BENCH_BATCH, 1):
+        u8 = torch.randint(0, 256, (n, cfg.n_cells, cfg.n_angles),
+                           dtype=torch.uint8, device=dev)
+        res = P.FrameResult(u8, None, None)     # the fetch reads image_u8
+        ways = dict(pageable_cpu=lambda: u8.cpu(),
+                    pinned_entry=lambda: P._fetch_u8(res).image_u8)
+        row = dict(batch=n, bytes=u8.numel())
+        for name, fetch in ways.items():
+            fetch()
+            ts = []
+            for _ in range(FETCH_REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                host = fetch()
+                ts.append(time.perf_counter() - t0)
+            check(torch.equal(host, u8.cpu()), f"14f {name}: bytes differ")
+            s = statistics.median(ts)
+            row[name] = dict(ms=s * 1e3, gb_per_s=u8.numel() / s / 1e9,
+                             pinned=host.is_pinned())
+        row["pageable_over_pinned"] = (row["pageable_cpu"]["ms"]
+                                       / row["pinned_entry"]["ms"])
+        out[f"batch_{n}"] = row
+        log(f"[14f u8 fetch, batch {n}] {json.dumps(row)}")
+    return out
 
 
 def profiled_counts(prof_row: dict, graph, tag: str) -> dict:
@@ -3692,6 +3754,7 @@ def compiled_phase(dev, smi: str, host5, n_objects5: int, cfg5) -> dict:
             compiled_over_eager=(sum(fps["compiled"]) / sum(fps["eager"])))
         log(f"[14b frames/s, batch {n}, 1M] {json.dumps(speed[f'batch_{n}'])}")
     out["b_speed"] = speed
+    out["f_fetch"] = fetch_rates(dev, cfg5)
 
     # a: a replay with new poses, materials and beam width, and a new cfg
     kw = explicit_inputs(cfg5, BATCH, dev, seed=11)
@@ -3702,7 +3765,7 @@ def compiled_phase(dev, smi: str, host5, n_objects5: int, cfg5) -> dict:
         beam_width=params.beam_width * 1.2)
     poses2 = poses_on(BATCH, dev) + torch.tensor(
         [3.0, -2.0, 0.0, 0, 0, 0, 0], device=dev)
-    c0 = P.frame_graphs.captures
+    c0, f0 = P.frame_graphs.captures, host_fetches()
     got = P.simulate_frames_jit(st, params2, cfg5, poses2, **kw)
     want = P.simulate_frames(st, params2, cfg5, poses2, **kw)
     base = P.simulate_frames(st, params, cfg5, poses_on(BATCH, dev), **kw)
@@ -3712,6 +3775,7 @@ def compiled_phase(dev, smi: str, host5, n_objects5: int, cfg5) -> dict:
     cfg_new = cfg5.replace(signal_max=90.0)
     P.simulate_frames_jit(st, params, cfg_new, poses2, **kw)
     new_values["captures_after_new_cfg"] = P.frame_graphs.captures - c0
+    new_values["host_fetches_per_call"] = (host_fetches() - f0) / 2
     out["a_new_values"] = new_values
     log(f"[14a 1m, new poses and materials] {json.dumps(new_values)}")
     check(new_values["bitwise"] and new_values["differs_from_old_values"]

@@ -257,5 +257,8 @@ def build_benchmark(n_buildings: int, extent: float = 300.0, *,
 
 
 def frame_checksum(res) -> torch.Tensor:
-    """A batch's checksum on the device: the sum of its u8 pixels."""
+    """A batch's checksum where its u8 image lies: the sum of its u8
+    pixels, on the device for an eager batch and on the host for a
+    compiled one on the card (complete on return); fetching it fences
+    the batch either way."""
     return res.image_u8.sum(dtype=torch.int64)

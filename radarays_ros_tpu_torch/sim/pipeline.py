@@ -29,7 +29,12 @@ The compiled entries `simulate_frame_jit` and `simulate_frames_jit` (the
 reference's jitted frame: one program a config) replay a CUDA graph of
 the same frame on the card (sim/graphs.py) and run the eager frame on the
 CPU; the frame makes no host copy and no host sync on the card, so that
-a graph can hold it.
+a graph can hold it. On the card a compiled entry returns the u8 image
+on the host, in a fresh page-locked tensor that one asynchronous copy
+filled before the call returned (_fetch_u8): every caller of a compiled
+entry reads its images on the host, and a card tensor's `.cpu()` is
+always a pageable copy. The eager entries keep the whole frame on the
+frame's device.
 """
 
 from __future__ import annotations
@@ -467,6 +472,27 @@ def _frame_args(params, poses, local_dirs, cone_draws, random_begin,
             f32(uniform))
 
 
+def _fetch_u8(res: FrameResult) -> FrameResult:
+    """`res` with its u8 image moved to the host: one asynchronous copy on
+    the current stream into a fresh page-locked tensor, then a wait on an
+    event recorded after it (not on the whole device), so that the image
+    is complete when the entry returns. PyTorch's caching host allocator
+    hands a freed block out again only once its copy has finished, so no
+    call writes into an earlier call's image, and after the first calls
+    none pays for a new page-locked allocation. The span `rr.frame.fetch`;
+    counted in simulate_frames_jit.host_fetches and .host_fetch_bytes."""
+    u8 = res.image_u8
+    with annotate("rr.frame.fetch"):
+        host = torch.empty(u8.shape, dtype=torch.uint8, pin_memory=True)
+        host.copy_(u8, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(u8.device))
+        done.synchronize()
+    simulate_frames_jit.host_fetches += 1
+    simulate_frames_jit.host_fetch_bytes += host.numel()
+    return res._replace(image_u8=host)
+
+
 def simulate_frames_jit(scene: SceneTensors, params: RadarParams,
                         cfg: RadarModelConfig, poses, *,
                         local_dirs: Optional[torch.Tensor] = None,
@@ -478,16 +504,20 @@ def simulate_frames_jit(scene: SceneTensors, params: RadarParams,
     """simulate_frames as one CUDA graph on the card (the reference's
     simulate_frames_jit), with its arguments and results; the results
     carry no autograd history (differentiate through
-    opti.optimize.value_and_grad).
+    opti.optimize.value_and_grad). On the card `image_u8` comes back on
+    the host, page-locked and complete (_fetch_u8), while `image_float`
+    and `max_val` stay on the card; on the CPU every field is the eager
+    frame's.
 
     Absent random inputs are drawn from `generator` first, as
     simulate_frames draws them, so that both agree bit for bit on one
     seed. On the card the batch replays its graph in frame_graphs —
     captured on its first call, after an eager warm-up whose result that
     call returns (sim/graphs.py) — with the poses, random inputs and
-    params copied in; a config jit_refusal names raises JitRefused before
-    anything runs. On the CPU it is the eager frame. The call is the span
-    `rr.frame.entry`."""
+    params copied in, then the u8 images fetched; a config jit_refusal
+    names raises JitRefused before anything runs. On the CPU it is the
+    eager frame. The call is the span `rr.frame.entry`, the fetch
+    `rr.frame.fetch` inside it."""
     with annotate("rr.frame.entry"):
         return _frames_jit(scene, params, cfg, poses, local_dirs=local_dirs,
                            cone_draws=cone_draws, random_begin=random_begin,
@@ -504,7 +534,14 @@ def _frames_jit(scene, params, cfg, poses, *, local_dirs, cone_draws,
     if reason is not None:
         raise JitRefused(f"simulate_frames_jit: {reason}; run "
                          "simulate_frames")
-    return frame_graphs(*args, static=(scene, cfg))
+    res = frame_graphs(*args, static=(scene, cfg))
+    return _fetch_u8(res) if res.image_u8.is_cuda else res
+
+
+# compiled calls whose u8 images came back through a page-locked buffer,
+# and those images' bytes (the card only)
+simulate_frames_jit.host_fetches = 0
+simulate_frames_jit.host_fetch_bytes = 0
 
 
 def simulate_frame_jit(scene: SceneTensors, params: RadarParams,
@@ -517,7 +554,8 @@ def simulate_frame_jit(scene: SceneTensors, params: RadarParams,
                        ) -> FrameResult:
     """simulate_frame through simulate_frames_jit (the reference's
     simulate_frame_jit): one frame, the batch of one, in one
-    `rr.frame.entry` span."""
+    `rr.frame.entry` span; on the card its `image_u8` is a page-locked
+    host tensor, as simulate_frames_jit's, counted there."""
     with annotate("rr.frame.entry"):
         return _one_frame(_frames_jit, scene, params, cfg, pose,
                           local_dirs=local_dirs, cone_draws=cone_draws,

@@ -12,6 +12,9 @@
       rr.graph.build   sim/graphs.py:Graph's build: static buffers, the
                        eager warm-up, the capture
       rr.graph.replay  a graph's replay (its launch)
+      rr.frame.fetch   a compiled frame's u8 images to the host on the
+                       card: the page-locked copy and the wait for it
+                       (inside rr.frame.entry, after rr.graph.replay)
       rr.fit.run       optimize_gradient, optimize_black_box
       rr.fit.eval      one evaluation of a fit (gradient: the compiled
                        step through loss.item(); black box: one call of f)

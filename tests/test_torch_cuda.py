@@ -1104,7 +1104,9 @@ def _jit_case(small_scene, dev, **kw):
 
 
 def _frames_equal(a, b):
-    return all(torch.equal(x, y) for x, y in zip(a, b))
+    """Bit for bit, field by field, on the host: a compiled entry on the
+    card returns its u8 image there."""
+    return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
 
 
 @pytest.mark.parametrize("engine", ["kernel", "mxu", "brute"])
@@ -1205,6 +1207,71 @@ def test_compiled_frame_replays_new_values_without_capture(small_scene,
     P.simulate_frames_jit(small_scene, params, cfg.replace(signal_max=90.0),
                           poses, **kw)
     assert P.frame_graphs.captures == c0 + 1
+
+
+@pytest.mark.parametrize("call", ["capture", "replay"])
+@pytest.mark.parametrize("batch", [20, 1])
+def test_compiled_frame_u8_lands_pinned_on_host(small_scene, dev, batch,
+                                                call):
+    """A compiled entry on the card (simulate_frames_jit at batch 20,
+    simulate_frame_jit at 1), on the capturing call and on a replay,
+    returns image_u8 as a page-locked host tensor, complete on return and
+    bit for bit the eager frame's; a second call with other poses leaves
+    the first call's image as it was and fills another buffer; each call
+    counts one fetch of N x n_cells x n_angles bytes; image_float and
+    max_val stay on the card."""
+    from radarays_ros_tpu_torch.sim import pipeline as P
+    from radarays_ros_tpu_torch.utils.transforms import make_pose
+
+    P.frame_graphs.clear()
+    cfg, params, _ = _jit_case(small_scene, dev)
+    poses = torch.from_numpy(np.stack([make_pose([0.5 - 0.1 * f, 0.5, 2.0])
+                                       for f in range(batch)])).to(dev)
+    g = torch.Generator(dev).manual_seed(batch)
+
+    def inputs():
+        return dict(cone_draws=tuple(torch.rand(batch, 8, generator=g,
+                                                device=dev) for _ in "tr"),
+                    random_begin=torch.randint(0, 1000, (batch, 64),
+                                               generator=g, device=dev))
+
+    def run(frames, frame, poses, kw):
+        if batch > 1:
+            return frames(small_scene, params, cfg, poses, **kw)
+        return frame(small_scene, params, cfg, poses[0],
+                     cone_draws=tuple(d[0] for d in kw["cone_draws"]),
+                     random_begin=kw["random_begin"][0])
+
+    def compiled(poses, kw):
+        return run(P.simulate_frames_jit, P.simulate_frame_jit, poses, kw)
+
+    def fetched():
+        return (P.simulate_frames_jit.host_fetches,
+                P.simulate_frames_jit.host_fetch_bytes)
+
+    if call == "replay":
+        compiled(poses, inputs())
+    c0, (n0, b0) = P.frame_graphs.captures, fetched()
+    kw = inputs()
+    got = compiled(poses, kw)
+    assert P.frame_graphs.captures - c0 == (call == "capture")
+    u8 = got.image_u8
+    assert u8.device.type == "cpu" and u8.is_pinned()
+    assert got.image_float.is_cuda and got.max_val.is_cuda
+    want = run(P.simulate_frames, P.simulate_frame, poses, kw)
+    assert want.image_u8.is_cuda
+    assert u8.max() > 0 and torch.equal(u8, want.image_u8.cpu())
+    nbytes = batch * cfg.n_cells * cfg.n_angles
+    assert u8.numel() == nbytes
+    assert fetched() == (n0 + 1, b0 + nbytes)
+    keep = u8.clone()
+    other = compiled(poses + torch.tensor([0.7, -0.4, 0.0, 0, 0, 0, 0],
+                                          device=dev), inputs())
+    assert fetched() == (n0 + 2, b0 + 2 * nbytes)
+    assert other.image_u8.is_pinned()
+    assert other.image_u8.data_ptr() != u8.data_ptr()
+    assert torch.equal(u8, keep) and not torch.equal(other.image_u8, u8)
+    P.frame_graphs.clear()
 
 
 def test_radar_compiled_frames_follow_new_object_materials(dev):

@@ -200,6 +200,34 @@ def test_frames_jit_equal_eager_frames(world, inputs):
     assert got1.image_u8.shape == (128, 16) and _equal(got1, want1)
 
 
+@pytest.mark.parametrize("batch", [2, 1])
+def test_frames_jit_on_cpu_counts_no_host_fetch(world, batch):
+    """On the CPU the compiled entry is the eager frame: every field bit
+    for bit, the u8 image an ordinary CPU tensor (not page-locked), and no
+    page-locked fetch counted (the card's compiled entries fetch their u8
+    images to the host; the CPU's are there already)."""
+    st, _ = world
+    _, params = _both_params(_MATS)
+    cfg = RadarModelConfig(**_CFG)
+    poses = torch.from_numpy(_POSES[:batch])
+    n0 = (P.simulate_frames_jit.host_fetches,
+          P.simulate_frames_jit.host_fetch_bytes)
+
+    def run(frames, frame):
+        g = torch.Generator().manual_seed(3)
+        if batch > 1:
+            return frames(st, params, cfg, poses, generator=g)
+        return frame(st, params, cfg, poses[0], generator=g)
+
+    want = run(P.simulate_frames, P.simulate_frame)
+    got = run(P.simulate_frames_jit, P.simulate_frame_jit)
+    assert got.image_u8.max() > 0 and _equal(got, want)
+    assert got.image_u8.device.type == "cpu"
+    assert not got.image_u8.is_pinned()
+    assert (P.simulate_frames_jit.host_fetches,
+            P.simulate_frames_jit.host_fetch_bytes) == n0
+
+
 def test_generator_draw_order_matches_simulate_frames(world):
     """Absent random inputs are drawn in simulate_frames' order (the cone
     draws frame by frame, then the Perlin offsets): one seed gives the same
